@@ -1,0 +1,130 @@
+"""BaseModel: the model contract of ``ptlflow_tpu/models/base/base_model.py``
+as a ``torch.nn.Module``.
+
+- ``forward(inputs)`` takes ``images`` (B, N, 3, H, W), BGR in [0, 1], and
+  returns ``flows`` (B, 1, 2, H, W) at input scale;
+- ``preprocess_images`` shifts and scales BGR, optionally flips to RGB and
+  pads or interpolates to a stride multiple; ``postprocess_predictions``
+  undoes the resizing.
+
+Everything is NCHW, so unlike the JAX package no layout moves happen here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+from ...ops.resize import InputPadder, InputScaler
+
+
+def bgr_val_as_tensor(val, like: torch.Tensor) -> torch.Tensor:
+    """(3, 1, 1) tensor of per-channel BGR values, from a scalar or a
+    triple, broadcastable against (..., 3, H, W)."""
+    if isinstance(val, (int, float)):
+        val = [float(val)] * 3
+    t = torch.as_tensor(val, dtype=like.dtype, device=like.device)
+    if t.dim() > 1:  # already shaped to broadcast against the images
+        return t
+    if t.shape != (3,):
+        raise ValueError(f"BGR value must be a scalar or a triple, got {val}")
+    return t.view(3, 1, 1)
+
+
+class BaseModel(nn.Module):
+    pretrained_checkpoints: Dict[str, str] = {}
+
+    def __init__(self, output_stride: int = 1, **kwargs):
+        super().__init__()
+        self.output_stride = output_stride
+        self.train_size = None
+        self.train_avg_length = None
+        self.extra_params = None
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    @torch.no_grad()
+    def init_params(self, seed: int = 0) -> "BaseModel":
+        """Random weights from ``seed``, drawn with a ``torch.Generator`` on
+        the CPU in a fixed module order, so a seed gives the same weights on
+        every device: convs kaiming-normal (fan_out, relu) with uniform
+        biases, norms at weight 1, bias 0, mean 0, var 1."""
+        gen = torch.Generator().manual_seed(seed)
+        for mod in self.modules():
+            if isinstance(mod, nn.Conv2d):
+                kh, kw = mod.kernel_size
+                std = math.sqrt(2.0 / (mod.out_channels * kh * kw))
+                w = torch.empty(mod.weight.shape).normal_(0.0, std,
+                                                          generator=gen)
+                mod.weight.copy_(w)
+                if mod.bias is not None:
+                    fan_in = mod.in_channels // mod.groups * kh * kw
+                    bound = 1.0 / math.sqrt(fan_in)
+                    bias = torch.empty(mod.bias.shape).uniform_(
+                        -bound, bound, generator=gen)
+                    mod.bias.copy_(bias)
+            elif isinstance(mod, nn.BatchNorm2d):
+                mod.reset_parameters()
+        return self
+
+    def forward(self, inputs: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def preprocess_images(
+        self, images: torch.Tensor,
+        stride: Optional[int] = None,
+        bgr_add: Union[float, Sequence[float]] = 0,
+        bgr_mult: Union[float, Sequence[float]] = 1,
+        bgr_to_rgb: bool = False,
+        image_resizer=None,
+        resize_mode: str = "pad",
+        target_size: Optional[Tuple[int, int]] = None,
+        pad_mode: str = "replicate",
+        pad_value: float = 0.0,
+        pad_two_side: bool = True,
+        interpolation_mode: str = "bilinear",
+        interpolation_align_corners: bool = True,
+    ):
+        """(B, N, 3, H, W) BGR -> shifted, scaled, optionally RGB, padded or
+        scaled to a stride multiple.  Returns (images, resizer)."""
+        images = images + bgr_val_as_tensor(bgr_add, images)
+        images = images * bgr_val_as_tensor(bgr_mult, images)
+        if bgr_to_rgb:
+            images = torch.flip(images, dims=[-3])
+
+        stride = self.output_stride if stride is None else stride
+        if target_size is not None:
+            stride = None
+
+        if image_resizer is None:
+            if resize_mode == "pad":
+                image_resizer = InputPadder(
+                    images.shape, stride=stride, size=target_size,
+                    pad_mode=pad_mode, two_side_pad=pad_two_side,
+                    pad_value=pad_value)
+            elif resize_mode == "interpolation":
+                image_resizer = InputScaler(
+                    images.shape, stride=stride, size=target_size,
+                    interpolation_mode=interpolation_mode,
+                    interpolation_align_corners=interpolation_align_corners)
+            else:
+                raise ValueError(
+                    f"resize_mode must be one of (pad, interpolation). "
+                    f"Found: {resize_mode}.")
+
+        return image_resizer.fill(images), image_resizer
+
+    def postprocess_predictions(self, prediction: torch.Tensor, image_resizer,
+                                is_flow: bool) -> torch.Tensor:
+        """Revert the resizing on an NCHW prediction."""
+        if image_resizer is None:
+            return prediction
+        if isinstance(image_resizer, InputScaler):
+            return image_resizer.unfill(prediction, is_flow=is_flow)
+        return image_resizer.unfill(prediction)

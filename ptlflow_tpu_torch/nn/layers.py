@@ -1,0 +1,40 @@
+"""Normalization layers with the JAX package's eval arithmetic.
+
+Convolutions are plain ``torch.nn.Conv2d`` (OIHW weights; the JAX package
+stores HWIO, see ``utils/convert.py``) and pooling is ``F.avg_pool2d``.  The
+two norms below are ``torch.nn`` modules with the same parameters and
+buffers, so their ``state_dict`` keys are torch's and the JAX package's; they
+only change how the eval forward computes, to follow
+``ptlflow_tpu/nn/layers.py`` in reduced precision too.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d``.  In eval mode it folds the running statistics
+    into one scale and shift in float32 and applies them in the input's
+    dtype, as the JAX package does, so bfloat16 inputs work with the
+    float32 running statistics that mixed precision keeps."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training or not self.track_running_stats:
+            return super().forward(x)
+        scale = torch.rsqrt(self.running_var.float() + self.eps)
+        shift = -self.running_mean.float() * scale
+        if self.affine:
+            scale = scale * self.weight.float()
+            shift = shift * self.weight.float() + self.bias.float()
+        return (x * scale.to(x.dtype)[:, None, None]
+                + shift.to(x.dtype)[:, None, None])
+
+
+class InstanceNorm2d(nn.InstanceNorm2d):
+    """``nn.InstanceNorm2d`` (affine=False, no running stats), with the
+    statistics taken in float32 whatever the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(x.dtype)

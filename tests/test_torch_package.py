@@ -1,0 +1,156 @@
+"""The PyTorch port as a package: it imports without JAX and nothing of the
+JAX package, its entry points default to the card, its checkpoints load
+with a plain ``load_state_dict``, and its IOAdapter matches the JAX one."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import ptlflow_tpu_torch
+from ptlflow_tpu.utils.io_adapter import IOAdapter as JIOAdapter
+from ptlflow_tpu_torch.utils import ckpt as tckpt
+from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def test_imports_without_jax():
+    """In a fresh interpreter: this test process already holds JAX."""
+    code = ("import sys, ptlflow_tpu_torch; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "bad = [m for m in sys.modules if m == 'ptlflow_tpu' "
+            "or m.startswith('ptlflow_tpu.')]; "
+            "assert not bad, bad")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(mod):
+    """jax or the JAX package, by exact module name: ptlflow_tpu_torch
+    shares the prefix and is allowed."""
+    return any(mod == top or mod.startswith(top + ".")
+               for top in ("jax", "jaxlib", "ptlflow_tpu"))
+
+
+@pytest.mark.parametrize("mod,bad", [("jax", True), ("jax.numpy", True),
+                                     ("ptlflow_tpu", True),
+                                     ("ptlflow_tpu.ops", True),
+                                     ("ptlflow_tpu_torch", False),
+                                     ("ptlflow_tpu_torch.ops", False),
+                                     ("jaxtyping", False)])
+def test_import_scan_matches_exact_names(mod, bad):
+    assert _forbidden(mod) is bad
+
+
+def test_port_sources_import_no_jax():
+    files = sorted((ROOT / "ptlflow_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    offenders = [(f.name, m) for f in files for m in _imported_modules(f)
+                 if _forbidden(m)]
+    assert not offenders
+
+
+def test_registry():
+    assert ptlflow_tpu_torch.get_model_names() == ["raft", "raft_small"]
+    assert ptlflow_tpu_torch.get_trainable_model_names() == ["raft",
+                                                             "raft_small"]
+    assert "raft" in ptlflow_tpu_torch.get_ptlflow_trained_model_names()
+    assert ptlflow_tpu_torch.get_model_reference("raft").__name__ == "raft"
+    with pytest.raises(ValueError):
+        ptlflow_tpu_torch.get_model_reference("no_such_model")
+
+
+def test_get_model_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card, so the default device works")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ptlflow_tpu_torch.get_model("raft_small")
+    model = ptlflow_tpu_torch.get_model("raft_small", device="cpu")
+    assert model.device.type == "cpu" and not model.training
+
+
+def test_seeded_weights_repeat():
+    a = ptlflow_tpu_torch.get_model("raft_small", device="cpu")
+    b = ptlflow_tpu_torch.get_model("raft_small", device="cpu")
+    c = ptlflow_tpu_torch.get_model("raft_small", device="cpu").init_params(1)
+    for k, v in a.state_dict().items():
+        torch.testing.assert_close(v, b.state_dict()[k], rtol=0, atol=0)
+    assert not torch.equal(a.fnet.conv1.weight, c.fnet.conv1.weight)
+
+
+def test_checkpoint_round_trip(tmp_path):
+    """A Lightning-style .ckpt (state_dict + hyper_parameters, harness keys
+    dropped) loads with strict load_state_dict."""
+    src = ptlflow_tpu_torch.get_model("raft_small", device="cpu").init_params(7)
+    state = dict(src.state_dict())
+    state["loss_fn.weight"] = torch.zeros(1)
+    path = tmp_path / "model.ckpt"
+    torch.save({"state_dict": state,
+                "hyper_parameters": {"train_size": [368, 496]}}, path)
+    dst = ptlflow_tpu_torch.get_model("raft_small", ckpt_path=str(path),
+                                      device="cpu")
+    for k, v in src.state_dict().items():
+        torch.testing.assert_close(dst.state_dict()[k], v, rtol=0, atol=0)
+    assert dst.train_size == (368, 496)
+
+
+def test_named_checkpoint_needs_the_cache(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.hub, "get_dir", lambda: str(tmp_path))
+    model = ptlflow_tpu_torch.get_model_reference("raft_small")()
+    with pytest.raises(FileNotFoundError, match="downloads nothing"):
+        tckpt.restore_model(model, "things")
+    cached = tmp_path / "checkpoints" / "raft_small-things-b7d9f997.ckpt"
+    cached.parent.mkdir()
+    torch.save(model.state_dict(), cached)
+    assert tckpt.resolve_checkpoint_path(model, "things") == str(cached)
+    with pytest.raises(ValueError):
+        tckpt.resolve_checkpoint_path(model, "no_such_checkpoint")
+
+
+@pytest.mark.parametrize("target_size", [None, (48, 64)])
+def test_io_adapter_matches_jax(target_size):
+    rng = np.random.RandomState(8)
+    frames = [rng.randint(0, 256, (37, 51, 3), dtype=np.uint8)
+              for _ in range(2)]
+    jad = JIOAdapter(output_stride=8, target_size=target_size)
+    tad = IOAdapter(output_stride=8, target_size=target_size, device="cpu")
+    want = np.asarray(jad.prepare_inputs(frames)["images"])
+    got = tad.prepare_inputs(frames)["images"]
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+    flows = rng.randn(1, 1, 2, *got.shape[-2:]).astype(np.float32)
+    want_u = np.asarray(jad.unscale({"flows": jnp.asarray(flows)})["flows"])
+    got_u = tad.unscale({"flows": torch.from_numpy(flows)})["flows"]
+    assert got_u.shape[-2:] == (37, 51) or target_size is None
+    np.testing.assert_allclose(got_u.numpy(), want_u, atol=1e-4)
+
+
+def test_io_adapter_feeds_the_model():
+    model = ptlflow_tpu_torch.get_model("raft_small", args={"iters": 1},
+                                        device="cpu")
+    rng = np.random.RandomState(9)
+    frames = [rng.rand(61, 83, 3).astype(np.float32) for _ in range(2)]
+    adapter = IOAdapter(model)
+    inputs = adapter.prepare_inputs(frames)
+    assert inputs["images"].device == model.device
+    out = adapter.unscale(model(inputs))
+    assert out["flows"].shape == (1, 1, 2, 61, 83)

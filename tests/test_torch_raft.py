@@ -1,0 +1,217 @@
+"""The PyTorch port's RAFT against the JAX package's, on the CPU.
+
+The JAX modules get random weights (norm statistics randomised too, so
+BatchNorm is not the identity); ``state_dict_from_jax`` carries them into
+the port, which must load them with ``strict=True``.  Inputs come from
+numpy seeds; the port is NCHW, the JAX package NHWC.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import ptlflow_tpu
+import ptlflow_tpu_torch
+from ptlflow_tpu.models.raft import extractor as jext
+from ptlflow_tpu.models.raft import update as jupd
+from ptlflow_tpu.nn.module import flatten_params
+from ptlflow_tpu_torch.models.raft import extractor as text
+from ptlflow_tpu_torch.models.raft import update as tupd
+from ptlflow_tpu_torch.utils.convert import state_dict_from_jax
+
+
+def nchw(a):
+    return torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(np.asarray(a, np.float32), -1, -3)))
+
+
+def nhwc(t):
+    return np.moveaxis(t.detach().float().numpy(), -3, -1)
+
+
+def np_tree(params):
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def randomize_norms(params, rng):
+    """Give every BatchNorm of a numpy param tree non-trivial statistics
+    and affine weights."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out[k] = randomize_norms(v, rng)
+        else:
+            out[k] = v
+    if "running_mean" in out:
+        c = out["running_mean"].shape[0]
+        out["running_mean"] = (0.1 * rng.randn(c)).astype(np.float32)
+        out["running_var"] = (1 + 0.5 * rng.rand(c)).astype(np.float32)
+        out["weight"] = (1 + 0.1 * rng.randn(c)).astype(np.float32)
+        out["bias"] = (0.1 * rng.randn(c)).astype(np.float32)
+    return out
+
+
+def damp_flow_head(block_params, factor=0.1):
+    """Scale the flow head's last conv so that random weights take steps of
+    a few pixels, as trained ones do.  Undamped, random RAFT steps ~20-30 px
+    and fp32 rounding in either package reaches the 1e-4 tolerance."""
+    head = block_params["flow_head"]["conv2"]
+    head["weight"] = head["weight"] * factor
+    head["bias"] = head["bias"] * factor
+
+
+def carry(jmod, tmod, seed, damp=False):
+    """Random JAX params for ``jmod``; the same weights loaded into
+    ``tmod``.  Returns the JAX params."""
+    params = randomize_norms(np_tree(jmod.init(jax.random.PRNGKey(seed))),
+                             np.random.RandomState(seed))
+    if damp:
+        damp_flow_head(params)
+    tmod.load_state_dict(state_dict_from_jax(params), strict=True)
+    tmod.eval()
+    return jax.tree_util.tree_map(jnp.asarray, params)
+
+
+def jax_state_keys(params):
+    """Flattened JAX names, plus the BatchNorm counters torch adds."""
+    keys = set(flatten_params(params))
+    keys |= {k[:-len("running_mean")] + "num_batches_tracked"
+             for k in keys if k.endswith("running_mean")}
+    return keys
+
+
+# -------------------------------------------------------------- encoders
+@pytest.mark.parametrize("norm_fn", ["instance", "batch", "none"])
+def test_basic_encoder_matches_jax(norm_fn):
+    jenc = jext.BasicEncoder(output_dim=64, norm_fn=norm_fn)
+    tenc = text.BasicEncoder(output_dim=64, norm_fn=norm_fn)
+    params = carry(jenc, tenc, 0)
+    x = np.random.RandomState(0).randn(2, 64, 96, 3).astype(np.float32)
+    want = np.asarray(jenc(params, jnp.asarray(x)))
+    with torch.no_grad():
+        got = tenc(nchw(x))
+    np.testing.assert_allclose(nhwc(got), want, atol=2e-3)
+
+
+def test_small_encoder_matches_jax():
+    jenc = jext.SmallEncoder(output_dim=128, norm_fn="instance")
+    tenc = text.SmallEncoder(output_dim=128, norm_fn="instance")
+    params = carry(jenc, tenc, 1)
+    x = np.random.RandomState(1).randn(1, 64, 64, 3).astype(np.float32)
+    want = np.asarray(jenc(params, jnp.asarray(x)))
+    with torch.no_grad():
+        got = tenc(nchw(x))
+    np.testing.assert_allclose(nhwc(got), want, atol=2e-3)
+
+
+# --------------------------------------------------------- update blocks
+@pytest.mark.parametrize("small", [False, True])
+def test_update_block_matches_jax(small):
+    if small:
+        radius, hidden, ctx, (b, h, w) = 3, 96, 64, (1, 6, 9)
+        jblk = jupd.SmallUpdateBlock(4, radius, hidden_dim=hidden)
+        tblk = tupd.SmallUpdateBlock(4, radius, hidden_dim=hidden)
+    else:
+        radius, hidden, ctx, (b, h, w) = 4, 128, 128, (2, 8, 12)
+        jblk = jupd.BasicUpdateBlock(4, radius, hidden_dim=hidden)
+        tblk = tupd.BasicUpdateBlock(4, radius, hidden_dim=hidden)
+    params = carry(jblk, tblk, 2, damp=True)
+    rng = np.random.RandomState(2)
+    cor_planes = 4 * (2 * radius + 1) ** 2
+    args = [rng.randn(b, h, w, c).astype(np.float32)
+            for c in (hidden, ctx, cor_planes, 2)]  # net, inp, corr, flow
+    j_net, j_mask, j_delta = jblk(params, *map(jnp.asarray, args))
+    with torch.no_grad():
+        t_net, t_mask, t_delta = tblk(*map(nchw, args))
+    np.testing.assert_allclose(nhwc(t_net), np.asarray(j_net), atol=1e-4)
+    np.testing.assert_allclose(nhwc(t_delta), np.asarray(j_delta), atol=1e-4)
+    if small:
+        assert j_mask is None and t_mask is None
+    else:
+        np.testing.assert_allclose(nhwc(t_mask), np.asarray(j_mask),
+                                   atol=1e-4)
+
+
+# ----------------------------------------------------------- full model
+@pytest.mark.parametrize("name", ["raft", "raft_small"])
+def test_eval_forward_matches_jax(name):
+    """Same weights, same images, 3 GRU iterations: flows within 5e-3 px
+    (the JAX package's own oracle tolerance), flow_small too.
+
+    The flow head is damped (``damp_flow_head``): undamped, fp32 rounding
+    grows ~5x per iteration, and the JAX package's own grouped and
+    ungrouped lookups differ by 1.4e-3 px after 3 iterations."""
+    jmodel = ptlflow_tpu.get_model(name, args={"iters": 3})
+    params = randomize_norms(np_tree(jmodel.init_params(seed=3)),
+                             np.random.RandomState(3))
+    damp_flow_head(params["update_block"])
+    jmodel.params = jax.tree_util.tree_map(jnp.asarray, params)
+    tmodel = ptlflow_tpu_torch.get_model(name, args={"iters": 3},
+                                         device="cpu")
+    tmodel.load_state_dict(state_dict_from_jax(params), strict=True)
+
+    images = np.random.RandomState(3).rand(1, 2, 3, 64, 96).astype(
+        np.float32)
+    want = jmodel({"images": images})
+    got = tmodel({"images": torch.from_numpy(images)})
+    assert got["flows"].shape == (1, 1, 2, 64, 96)
+    np.testing.assert_allclose(got["flows"].numpy(),
+                               np.asarray(want["flows"]), atol=5e-3)
+    np.testing.assert_allclose(got["flow_small"].numpy(),
+                               np.asarray(want["flow_small"]), atol=5e-3)
+
+
+@pytest.mark.parametrize("name", ["raft", "raft_small"])
+def test_state_dict_keys_match_jax_params(name):
+    jmodel = ptlflow_tpu.get_model(name, args={"iters": 1})
+    tmodel = ptlflow_tpu_torch.get_model(name, args={"iters": 1},
+                                         device="cpu")
+    assert set(tmodel.state_dict()) == jax_state_keys(jmodel.params)
+    # stride-2 blocks keep their unused norm, as the checkpoints do
+    if name == "raft":
+        assert "cnet.layer2.0.norm3.running_mean" in tmodel.state_dict()
+
+
+def test_padded_forward_unpads_to_input_size():
+    """1024x436-like aspect at a small size: 61x83 pads to 64x88 and the
+    flow comes back at 61x83."""
+    model = ptlflow_tpu_torch.get_model("raft_small", args={"iters": 2},
+                                        device="cpu")
+    images = torch.from_numpy(
+        np.random.RandomState(4).rand(1, 2, 3, 61, 83).astype(np.float32))
+    out = model({"images": images})
+    assert out["flows"].shape == (1, 1, 2, 61, 83)
+    assert out["flow_small"].shape == (1, 2, 8, 11)
+    assert torch.isfinite(out["flows"]).all()
+
+
+@pytest.mark.parametrize("args", [{"mixed_precision": True},
+                                  {"corr_dtype": "bfloat16"}])
+def test_reduced_precision_forward(args):
+    """bf16 paths emit finite fp32 flow; under mixed precision the weights
+    are bf16 and the norm statistics stay fp32."""
+    model = ptlflow_tpu_torch.get_model("raft", args={"iters": 2, **args},
+                                        device="cpu")
+    images = torch.from_numpy(
+        np.random.RandomState(5).rand(1, 2, 3, 64, 96).astype(np.float32))
+    out = model({"images": images})
+    assert out["flows"].dtype == torch.float32
+    assert torch.isfinite(out["flows"]).all()
+    if args.get("mixed_precision"):
+        assert model.fnet.conv1.weight.dtype == torch.bfloat16
+        assert model.cnet.norm1.weight.dtype == torch.bfloat16
+        assert model.cnet.norm1.running_var.dtype == torch.float32
+
+
+def test_training_is_not_ported():
+    model = ptlflow_tpu_torch.get_model("raft_small", args={"iters": 1},
+                                        device="cpu")
+    images = torch.zeros(1, 2, 3, 32, 32)
+    with pytest.raises(NotImplementedError):
+        model({"images": images}, training=True)
+    model.train()
+    with pytest.raises(NotImplementedError):
+        model({"images": images})
