@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
 """Run the PyTorch port of ptlflow_tpu on one CUDA card, end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against OTHER_corr_lookup.cu ...]
 
 Phases, each of which must pass, else the script exits non-zero:
 
 1. build every CUDA kernel of ``ptlflow_tpu_torch/csrc`` with nvcc;
-2. hold each kernel against its plain PyTorch version on the card;
+2. hold each kernel against its plain PyTorch version on the card: the
+   lookup at radii 0, 1, 3, 4 and 8 in fp32 and bf16, on odd map widths,
+   an empty level, one query, a prime Q and coords far outside the map,
+   and at the main path's shapes;
 3. serve 3 frame pairs at 436x1024 through ``raft`` and ``raft_small``
    (12 GRU iterations, seeded random weights) via IOAdapter -> model ->
-   unscale, counting the kernel launches of each run;
+   unscale, counting the kernel launches of each run (the model prepares
+   the lookup once per forward and launches it once per iteration);
 4. run the same weights and input on the card and on the CPU (plain
    versions) and compare the flows;
-5. time the kernel, its plain version and the PyTorch yardstick at the main
-   path's shapes, the RAFT forward in fp32 and mixed precision, and profile
-   one forward.
+5. time the kernel (CUDA events and the profiler's device time, L2 cold,
+   fp32 and bf16), its plain version and the PyTorch yardstick at the main
+   path's shapes, the host time of a one-shot and of a prepared lookup
+   call, the RAFT forward in fp32 and mixed precision, and profile one
+   forward.
+
+``--against`` builds other versions of ``csrc/corr_lookup.cu`` (the same C
+interface) and times each in turns with the repo's kernel on the same
+inputs (other, repo, repo, other), in the same run.
 
 The second-to-last line is ``{"kernels": [...]}``, the line before it the
 card's name and power limit, and the last line
@@ -24,6 +34,8 @@ exits 2.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -59,16 +71,16 @@ def log(msg: str) -> None:
 
 def timed_ms(torch, fn, reps: int, flush=None) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, by CUDA events around
-    each call.  With ``flush`` the buffer is overwritten before every call,
-    so the call finds the 50 MB L2 cold, as in the model, where the update
-    block runs between two lookups; the overwrite also keeps the card busy
-    while the host enqueues the call."""
+    each call.  ``flush`` runs before every call and sweeps the 50 MB L2
+    (see ``flushes``), so the call finds its inputs cold, as in the model,
+    where the update block runs between two lookups; the sweep also keeps
+    the card busy while the host enqueues the call."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
         if flush is not None:
-            flush.zero_()
+            flush()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -77,6 +89,81 @@ def timed_ms(torch, fn, reps: int, flush=None) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def profiled_ms(torch, fn, reps: int, flush, name: str = "corr_lookup"):
+    """Mean device time per launch of the kernels whose name holds ``name``
+    over ``reps`` calls of ``fn``, L2 flushed before each, by the profiler
+    (torch.profiler), or None where it recorded no device time.  A first
+    profiled run absorbs the tracer's start-up and is not read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            for _ in range(reps):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if name in e.key and str(getattr(e, "device_type", "")).endswith(
+                "CUDA"):
+            total += (getattr(e, "self_device_time_total", None)
+                      or getattr(e, "self_cuda_time_total", 0))
+            count += e.count
+    return total / count / 1e3 if count and total > 0 else None
+
+
+def flushes(torch, dev) -> dict:
+    """Two ways to sweep the L2 before a timed call.  "dirty" overwrites
+    256 MB and leaves the L2 full of written lines, which the timed call's
+    own traffic must write back to memory first; "clean" reads 256 MB and
+    leaves it full of lines that can be dropped."""
+    buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    return {"dirty": buf.zero_, "clean": buf.max}
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def host_us(torch, fn, calls: int):
+    """Host microseconds per call of ``fn`` over ``calls`` calls between two
+    syncs: to enqueue them all, and until the card has run them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) / calls * 1e6, (t2 - t0) / calls * 1e6
+
+
+def lookup_bound(torch, pyr, coords, radius: int) -> dict:
+    """Least time of one lookup on this card: the bytes it must move (the
+    coords, the in-range patch elements, the output) over the memory rate,
+    or its FLOPs over the fp32 rate, whichever is larger."""
+    q = coords.shape[0] * coords.shape[2] * coords.shape[3]
+    n2 = (2 * radius + 1) ** 2
+    shapes = [tuple(p.shape[1:]) for p in pyr]
+    elt = pyr[0].element_size()
+    patch_elems, patch_sectors = patch_traffic(torch, coords, shapes, radius,
+                                               elt)
+    out_bytes = q * len(pyr) * n2 * elt
+    nbytes = q * 2 * 4 + patch_elems * elt + out_bytes
+    flops = 9 * q * len(pyr) * n2  # three 2-tap lerps per output
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "patch_elems": patch_elems,
+            "patch_sector_bytes": patch_sectors * 32,
+            "sector_bytes": patch_sectors * 32 + out_bytes, "flops": flops,
+            "bytes_ms": bytes_ms, "flops_ms": flops_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
 
 
 def smooth_pair(seed: int, h: int, w: int, shift=(3, 2)):
@@ -109,23 +196,38 @@ def damp_flow_head(model, factor: float = 0.03) -> None:
         conv.bias.mul_(factor)
 
 
-def in_range_patch_elems(torch, coords, shapes, radius: int) -> int:
+def patch_traffic(torch, coords, shapes, radius: int, elt: int):
     """Elements of the (2r+2)^2 patches that fall inside each level for
-    these coords: what the lookup must read."""
+    these coords (what the lookup must read), and the 32-byte memory
+    sectors that their rows touch (what the card must fetch for them:
+    a row of in-range elements at any offset spans whole sectors)."""
     p = 2 * radius + 2
-    total = 0
+    q = torch.arange(coords.shape[0] * coords.shape[2] * coords.shape[3],
+                     device=coords.device)[:, None]
+    offs = torch.arange(p, device=coords.device)
+    elems = sectors = 0
     for i, (h2, w2) in enumerate(shapes):
         c = torch.floor(coords / 2 ** i).long() - radius  # (B, 2, H1, W1)
-        x0, y0 = c[:, 0], c[:, 1]
-        nx = (torch.minimum(x0 + p, torch.tensor(w2, device=c.device))
-              - x0.clamp(min=0)).clamp(min=0)
-        ny = (torch.minimum(y0 + p, torch.tensor(h2, device=c.device))
-              - y0.clamp(min=0)).clamp(min=0)
-        total += int((nx * ny).sum())
-    return total
+        x0 = c[:, 0].reshape(-1, 1)
+        y0 = c[:, 1].reshape(-1, 1)
+        xs, xe = x0.clamp(min=0), (x0 + p).clamp(max=w2)
+        ys = y0 + offs  # (Q, p) rows
+        rows = (ys >= 0) & (ys < h2) & (xe > xs)
+        elems += int(((xe - xs) * rows).sum())
+        start = ((q * h2 + ys) * w2 + xs) * elt
+        end = ((q * h2 + ys) * w2 + xe) * elt
+        n = end.sub(1).div(32, rounding_mode="floor") - start.div(
+            32, rounding_mode="floor") + 1
+        sectors += int((n * rows).sum())
+    return elems, sectors
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--against", nargs="*", default=[],
+                        help="other corr_lookup.cu sources to time in turns "
+                             "with the repo's kernel")
+    args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -174,43 +276,56 @@ def main() -> int:
         return pyr, coords
 
     hp, wp = -(-H // 8), -(-W // 8)  # raft at 1024x436: Q = 55*128 = 7040
-    cases = [
-        # name, (b, h1, w1, h2, w2, c, lo, hi), radius, dtype
-        ("small Q=77, fp32, r=3", (1, 7, 11, 14, 22, 32, -0.3, 1.3), 3,
-         torch.float32),
-        ("small Q=77, fp32, r=4", (1, 7, 11, 14, 22, 32, -0.3, 1.3), 4,
-         torch.float32),
-        ("prime Q=37, fp32, r=4", (1, 1, 37, 8, 12, 16, -0.3, 1.3), 4,
-         torch.float32),
-        ("prime Q=37, bf16, r=3", (1, 1, 37, 8, 12, 16, -0.3, 1.3), 3,
-         torch.bfloat16),
-        ("batch 2, bf16, r=4", (2, 9, 13, 9, 13, 32, -0.3, 1.3), 4,
-         torch.bfloat16),
-        ("raft Q=7040, fp32, r=4", (1, hp, wp, hp, wp, 256, -0.1, 1.1), 4,
-         torch.float32),
-        ("raft Q=7040, bf16, r=4", (1, hp, wp, hp, wp, 256, -0.1, 1.1), 4,
-         torch.bfloat16),
-        ("raft_small Q=7040, fp32, r=3", (1, hp, wp, hp, wp, 128, -0.1, 1.1),
-         3, torch.float32),
+    edge_cases = [
+        # name, (b, h1, w1, h2, w2, c, lo, hi)
+        ("Q=77, odd W2=23", (1, 7, 11, 14, 23, 32, -0.3, 1.3)),
+        ("Q=37, W2=125", (1, 1, 37, 9, 125, 16, -0.3, 1.3)),
+        ("Q=1", (1, 1, 1, 8, 13, 16, -0.3, 1.3)),
+        ("batch 2, 5x5 maps, empty level", (2, 5, 5, 5, 5, 16, -0.3, 1.3)),
+        ("coords at +-1e7", (1, 3, 6, 10, 15, 16, -0.3, 1.3)),
     ]
+    cases = [(f"{label}, r={radius}", shape, radius, dtype)
+             for radius in (0, 1, 3, 4, 8)
+             for dtype in (torch.float32, torch.bfloat16)
+             for label, shape in edge_cases]
+    cases += [
+        ("raft Q=7040, r=4", (1, hp, wp, hp, wp, 256, -0.1, 1.1), 4,
+         torch.float32),
+        ("raft Q=7040, r=4", (1, hp, wp, hp, wp, 256, -0.1, 1.1), 4,
+         torch.bfloat16),
+        ("raft_small Q=7040, r=3", (1, hp, wp, hp, wp, 128, -0.1, 1.1), 3,
+         torch.float32),
+    ]
+    far = torch.tensor([1e7, -1e7, 3.5, -2.5e6, 2.5], device=dev)
     main_err = None
+    main_inputs = {}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for label, shape, radius, dtype in cases:
         pyr, coords = case_inputs(*shape)
         pyr = [p.to(dtype) for p in pyr]
+        if label.startswith("coords at"):
+            coords[0, 0, 0, :5] = far
+            coords[0, 1, 1, :5] = far.flip(0)
         got = corr.corr_lookup_kernel(pyr, coords, radius)
         torch.cuda.synchronize()
         want = corr.corr_pyramid_lookup_plain(pyr, coords, radius)
         err = (got.float() - want.float()).abs().max().item()
-        log(f"[2 kernel vs plain] {label}: out {tuple(got.shape)} "
-            f"{str(dtype)[6:]}, max |err| {err:.3e}")
+        worst[dtype] = max(worst[dtype], err)
+        log(f"[2 kernel vs plain] {label}, {str(dtype)[6:]}: out "
+            f"{tuple(got.shape)}, levels "
+            f"{[tuple(p.shape[1:]) for p in pyr]}, max |err| {err:.3e}")
         if dtype == torch.float32:
             torch.testing.assert_close(got, want, rtol=0, atol=ATOL_FP32)
         else:
             torch.testing.assert_close(got.float(), want.float(),
                                        rtol=RTOL_BF16, atol=ATOL_BF16)
-        if label.startswith("raft Q=7040, fp32"):
-            main_err = err
-            main_inputs = (pyr, coords)
+        if label.startswith("raft Q=7040"):
+            main_inputs[dtype] = (pyr, coords)
+            if dtype == torch.float32:
+                main_err = err
+    log(f"[2 kernel vs plain] {len(cases)} cases pass: worst fp32 |err| "
+        f"{worst[torch.float32]:.3e} (tolerance {ATOL_FP32}), worst bf16 "
+        f"|err| {worst[torch.bfloat16]:.3e} (rtol {RTOL_BF16})")
 
     # ---------------------------------------------------------------- 3
     pairs = [smooth_pair(seed, H, W, shift=(2 + seed, 1 + seed))
@@ -261,14 +376,24 @@ def main() -> int:
             raise AssertionError(f"{name}: card and CPU differ by {diff} px")
 
     # ---------------------------------------------------------------- 5
-    pyr, coords = main_inputs
+    pyr, coords = main_inputs[torch.float32]
     radius = 4
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    sweeps = flushes(torch, dev)
+    flush = sweeps["dirty"]
     reps = 50
-    kernel_ms = timed_ms(torch, lambda: corr.corr_lookup_kernel(
-        pyr, coords, radius), reps, flush)
+    lookup = corr.make_corr_lookup(pyr, radius)
+    kernel_ms = timed_ms(torch, lambda: lookup(coords), reps, flush)
+    clean_ms = timed_ms(torch, lambda: lookup(coords), reps, sweeps["clean"])
+    profiler_ms = profiled_ms(torch, lambda: lookup(coords), reps, flush)
+    clean_profiler_ms = profiled_ms(torch, lambda: lookup(coords), reps,
+                                    sweeps["clean"])
     plain_ms = timed_ms(torch, lambda: corr.corr_pyramid_lookup_plain(
         pyr, coords, radius), reps, flush)
+    bf16_pyr, bf16_coords = main_inputs[torch.bfloat16]
+    bf16_lookup = corr.make_corr_lookup(bf16_pyr, radius)
+    bf16_ms = timed_ms(torch, lambda: bf16_lookup(bf16_coords), reps, flush)
+    bf16_profiler_ms = profiled_ms(torch, lambda: bf16_lookup(bf16_coords),
+                                   reps, flush)
 
     def grid_sample_lookup():
         # one torch.nn.functional.grid_sample per level + cat: the
@@ -290,42 +415,110 @@ def main() -> int:
         return torch.cat(outs, dim=-1).permute(0, 3, 1, 2).contiguous()
 
     lib_out = grid_sample_lookup()
-    lib_err = (lib_out - corr.corr_lookup_kernel(pyr, coords, radius)
-               ).abs().max().item()
+    lib_err = (lib_out - lookup(coords)).abs().max().item()
     library_ms = timed_ms(torch, grid_sample_lookup, reps, flush)
-    warm_ms = timed_ms(torch, lambda: [corr.corr_lookup_kernel(
-        pyr, coords, radius) for _ in range(20)], 5) / 20
+    warm_ms = timed_ms(torch, lambda: [lookup(coords) for _ in range(20)],
+                       5) / 20
 
+    bound = lookup_bound(torch, pyr, coords, radius)
+    bound_ms, bound_by = bound["bound_ms"], bound["bound_by"]
+    # what the sweep itself costs a call: a plain copy that reads and
+    # writes as many bytes as the bound counts, after each sweep
+    src = torch.empty(bound["bytes"] // 2, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = {k: timed_ms(torch, lambda: dst.copy_(src), reps, f)
+               for k, f in sweeps.items()}
+    # and what any launch costs after it: a one-element fill
+    tiny = torch.empty(1, device=dev)
+    floor_ms = {k: timed_ms(torch, tiny.zero_, reps, f)
+                for k, f in sweeps.items()}
+    del src, dst
+    bf16_bound = lookup_bound(torch, bf16_pyr, bf16_coords, radius)
     q = coords.shape[0] * coords.shape[2] * coords.shape[3]
-    n2 = (2 * radius + 1) ** 2
     shapes = [tuple(p.shape[1:]) for p in pyr]
-    elt = pyr[0].element_size()
-    patch_elems = in_range_patch_elems(torch, coords, shapes, radius)
-    nbytes = q * 2 * 4 + patch_elems * elt + q * len(pyr) * n2 * elt
-    flops = 9 * q * len(pyr) * n2  # three 2-tap lerps per output
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
-    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
-                >= flops / FP32_FLOPS_PER_S else "operations")
-    log(f"[5 lookup] [{tag}] Q={q}, levels {shapes}, r={radius}, fp32, "
-        f"L2 flushed per launch: kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, grid_sample yardstick {library_ms:.4f} ms "
-        f"(max |diff| to kernel {lib_err:.2e}); back-to-back kernel "
-        f"{warm_ms:.4f} ms")
-    log(f"[5 lookup] bound: {nbytes} bytes ({patch_elems} in-range patch "
-        f"elements) -> {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s; "
-        f"{flops} FLOP -> {flops / FP32_FLOPS_PER_S * 1e3:.5f} ms at 67 "
-        f"TFLOP/s; bound {bound_ms:.4f} ms by {bound_by}, kernel at "
-        f"{bound_ms / kernel_ms:.1%} of it")
+    log(f"[5 lookup] [{tag}] Q={q}, levels {shapes}, r={radius}, L2 flushed "
+        f"per launch; fp32: kernel {kernel_ms:.4f} ms by CUDA events, "
+        f"{fmt_ms(profiler_ms)} device time by the profiler, plain "
+        f"{plain_ms:.4f} ms, grid_sample yardstick {library_ms:.4f} ms (max "
+        f"|diff| to kernel {lib_err:.2e}); back-to-back kernel "
+        f"{warm_ms:.4f} ms; bf16: kernel {bf16_ms:.4f} ms by events, "
+        f"{fmt_ms(bf16_profiler_ms)} by the profiler")
+    log(f"[5 lookup] [{tag}] after a clean sweep (L2 read, not written): "
+        f"fp32 kernel {clean_ms:.4f} ms by events, "
+        f"{fmt_ms(clean_profiler_ms)} by the profiler; a copy of the "
+        f"bound's {bound['bytes']} bytes: {copy_ms['dirty']:.4f} ms after "
+        f"the dirty sweep, {copy_ms['clean']:.4f} ms after the clean one; "
+        f"a one-element fill: {floor_ms['dirty']:.4f} and "
+        f"{floor_ms['clean']:.4f} ms")
+    for label, bd, ms in (("fp32", bound, kernel_ms),
+                          ("bf16", bf16_bound, bf16_ms)):
+        log(f"[5 lookup] {label} bound: {bd['bytes']} bytes "
+            f"({bd['patch_elems']} in-range patch elements) -> "
+            f"{bd['bytes_ms']:.5f} ms at 3.35 TB/s; {bd['flops']} FLOP -> "
+            f"{bd['flops_ms']:.5f} ms at 67 TFLOP/s; bound "
+            f"{bd['bound_ms']:.5f} ms by {bd['bound_by']}, kernel at "
+            f"{bd['bound_ms'] / ms:.1%} of it; the in-range patch rows span "
+            f"{bd['patch_sector_bytes']} bytes of whole 32-byte sectors, "
+            f"{bd['sector_bytes']} with the output, moved at "
+            f"{bd['sector_bytes'] / ms / 1e9:.3f} TB/s")
+
+    # host cost of one call, in turns: the one-shot call checks the pyramid
+    # and builds the pointer arrays each time, the prepared one does not
+    host = {"one_shot": [], "prepared": []}
+    for kind in ("one_shot", "prepared", "prepared", "one_shot"):
+        fn = ((lambda: corr.corr_pyramid_lookup(pyr, coords, radius))
+              if kind == "one_shot" else (lambda: lookup(coords)))
+        host[kind].append(host_us(torch, fn, 1000))
+    for kind, runs in host.items():
+        log(f"[5 host] [{tag}] {kind} lookup call, fp32 Q={q}: "
+            + "; ".join(f"{enq:.2f} us to enqueue, {wall:.2f} us with the "
+                        f"card" for enq, wall in runs)
+            + " (per call, over 1000 calls between syncs)")
+    host_us_one_shot = min(r[0] for r in host["one_shot"])
+    host_us_prepared = min(r[0] for r in host["prepared"])
+
+    against = []
+    for path in args.against:
+        other_lib = corr._corr_lookup_lib(
+            ctypes.CDLL(str(cuda_build.build_file(path))))
+        row = {"source": path}
+        for label, (p_, c_), mine in (("fp32", (pyr, coords), lookup),
+                                      ("bf16", (bf16_pyr, bf16_coords),
+                                       bf16_lookup)):
+            other = corr._kernel_lookup(p_, radius, other_lib)
+            err = (other(c_).float() - mine(c_).float()).abs().max().item()
+            turns = [timed_ms(torch, (lambda: other(c_)) if k % 3 == 0
+                              else (lambda: mine(c_)), reps, flush)
+                     for k in range(4)]
+            clean = [timed_ms(torch, (lambda: other(c_)) if k % 3 == 0
+                              else (lambda: mine(c_)), reps, sweeps["clean"])
+                     for k in range(4)]
+            row[label] = {
+                "other_ms": [turns[0], turns[3]],
+                "repo_ms": [turns[1], turns[2]],
+                "other_clean_ms": [clean[0], clean[3]],
+                "repo_clean_ms": [clean[1], clean[2]],
+                "other_profiler_ms": profiled_ms(torch, lambda: other(c_),
+                                                 reps, flush),
+                "max_abs_diff": err}
+            log(f"[5 against] [{tag}] {path}, {label}, L2 cold, in turns: "
+                f"other {turns[0]:.4f}, repo {turns[1]:.4f}, repo "
+                f"{turns[2]:.4f}, other {turns[3]:.4f} ms; after the clean "
+                f"sweep: other {clean[0]:.4f}, repo {clean[1]:.4f}, repo "
+                f"{clean[2]:.4f}, other {clean[3]:.4f} ms; other by the "
+                f"profiler {fmt_ms(row[label]['other_profiler_ms'])}; max "
+                f"|diff| {err:.2e}")
+        against.append(row)
 
     images = torch.from_numpy(np.stack(
         [np.stack(smooth_pair(11, H, W))]).astype(np.float32) / 255.0)
     images = images.permute(0, 1, 4, 2, 3).contiguous().to(dev)
     fwd = {}
-    for name, args in [("raft", {}), ("raft", {"mixed_precision": True}),
-                       ("raft_small", {})]:
+    for name, extra in [("raft", {}), ("raft", {"mixed_precision": True}),
+                        ("raft_small", {})]:
         model = ptlflow_tpu_torch.get_model(name, args={"iters": ITERS,
-                                                        **args})
-        label = f"{name} {'mixed' if args else 'fp32'}"
+                                                        **extra})
+        label = f"{name} {'mixed' if extra else 'fp32'}"
         for _ in range(3):
             model({"images": images})
         runs = sorted(timed_ms(torch, lambda: model({"images": images}), 10)
@@ -358,7 +551,19 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": library_ms,
         "warm_ms": warm_ms,
+        "profiler_ms": profiler_ms,
+        "clean_ms": clean_ms,
+        "clean_profiler_ms": clean_profiler_ms,
+        "copy_ms": copy_ms,
+        "fill_ms": floor_ms,
+        "bf16_ms": bf16_ms,
+        "bf16_profiler_ms": bf16_profiler_ms,
+        "bf16_bound_ms": bf16_bound["bound_ms"],
+        "host_us_one_shot": host_us_one_shot,
+        "host_us_prepared": host_us_prepared,
     }]
+    if against:
+        kernels[0]["against"] = against
     log(json.dumps({"forward_ms": fwd, "card": tag}))
     log(tag)
     log(json.dumps({"kernels": kernels}))

@@ -2,8 +2,9 @@
 
 Same preprocessing (BGR shifted by -0.5 and scaled by 2, BGR->RGB,
 replicate padding to /8 on both sides), correlation pyramid, lookup order,
-update block and convex upsampling as the JAX package.  The GRU iterations
-are a Python loop; each one launches the lookup kernel once.
+update block and convex upsampling as the JAX package.  The lookup is
+prepared once per forward (``make_corr_lookup``) and the GRU iterations are
+a Python loop; each one launches the lookup kernel once.
 
 Only the eval path is ported: training (the ``flow_preds`` stack, the
 sequence loss, backward), the warm start from ``prev_preds`` and the
@@ -19,7 +20,7 @@ import torch
 
 from ...nn import cast_params
 from ...ops.correlation import (build_corr_pyramid, coords_grid,
-                                corr_pyramid_lookup)
+                                make_corr_lookup)
 from ...ops.upsample import convex_upsample, upflow
 from ...utils.registry import ptlflow_trained, register_model, trainable
 from ..base import BaseModel
@@ -103,6 +104,7 @@ class RAFT(BaseModel):
         fmap2 = self.fnet(image2)
         pyramid = build_corr_pyramid(fmap1, fmap2, self.corr_levels,
                                      dtype=corr_dtype)
+        corr_lookup = make_corr_lookup(pyramid, self.corr_radius)
 
         cnet = self.cnet(image1)
         net = torch.tanh(cnet[:, :self.hidden_dim])
@@ -119,11 +121,13 @@ class RAFT(BaseModel):
                             device=fmap1.device) if has_mask else None)
 
         for _ in range(self.iters):
-            corr = corr_pyramid_lookup(pyramid, coords1, self.corr_radius)
+            corr = corr_lookup(coords1)
             flow = coords1 - coords0
-            # the update block runs in the net dtype; coords stay fp32
+            # the update block runs in the net dtype, coords stay fp32, and
+            # the lookup output keeps the pyramid's dtype, as in the JAX
+            # package: a bf16 pyramid feeds bf16 correlation convolutions
             net, up_mask, delta_flow = self.update_block(
-                net, inp, corr.to(net.dtype), flow.to(net.dtype))
+                net, inp, corr, flow.to(net.dtype))
             coords1 = coords1 + delta_flow
             if up_mask is not None:
                 mask = up_mask

@@ -2,6 +2,10 @@
 (``ptlflow_tpu/models/raft/update.py``), NCHW.
 
 Attribute names are the JAX package's, so ``state_dict()`` keys match.
+The motion encoders' correlation convolutions run in the correlation's
+dtype (``CastConv2d``), as in the JAX package: a bfloat16 lookup output
+stays bfloat16 through ``convc1``/``convc2`` and is promoted to float32
+where it is concatenated with the float32 flow features.
 The JAX package runs the z and r convolutions of the GRU as one fused
 convolution to read the GRU input once on the TPU; here they are the two
 separate convolutions of the reference, which is the same math.
@@ -11,6 +15,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ...nn import CastConv2d
 
 
 class FlowHead(nn.Module):
@@ -66,7 +72,7 @@ class SmallMotionEncoder(nn.Module):
     def __init__(self, corr_levels, corr_radius):
         super().__init__()
         cor_planes = corr_levels * (2 * corr_radius + 1) ** 2
-        self.convc1 = nn.Conv2d(cor_planes, 96, 1, padding=0)
+        self.convc1 = CastConv2d(cor_planes, 96, 1, padding=0)
         self.convf1 = nn.Conv2d(2, 64, 7, padding=3)
         self.convf2 = nn.Conv2d(64, 32, 3, padding=1)
         self.conv = nn.Conv2d(128, 80, 3, padding=1)
@@ -82,8 +88,8 @@ class BasicMotionEncoder(nn.Module):
     def __init__(self, corr_levels, corr_radius):
         super().__init__()
         cor_planes = corr_levels * (2 * corr_radius + 1) ** 2
-        self.convc1 = nn.Conv2d(cor_planes, 256, 1, padding=0)
-        self.convc2 = nn.Conv2d(256, 192, 3, padding=1)
+        self.convc1 = CastConv2d(cor_planes, 256, 1, padding=0)
+        self.convc2 = CastConv2d(256, 192, 3, padding=1)
         self.convf1 = nn.Conv2d(2, 128, 7, padding=3)
         self.convf2 = nn.Conv2d(128, 64, 3, padding=1)
         self.conv = nn.Conv2d(64 + 192, 128 - 2, 3, padding=1)

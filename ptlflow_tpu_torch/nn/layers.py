@@ -1,8 +1,8 @@
-"""Normalization layers with the JAX package's eval arithmetic.
+"""Layers with the JAX package's eval arithmetic.
 
-Convolutions are plain ``torch.nn.Conv2d`` (OIHW weights; the JAX package
-stores HWIO, see ``utils/convert.py``) and pooling is ``F.avg_pool2d``.  The
-two norms below are ``torch.nn`` modules with the same parameters and
+Convolutions are ``torch.nn.Conv2d`` (OIHW weights; the JAX package stores
+HWIO, see ``utils/convert.py``) and pooling is ``F.avg_pool2d``.  The
+modules below are ``torch.nn`` modules with the same parameters and
 buffers, so their ``state_dict`` keys are torch's and the JAX package's; they
 only change how the eval forward computes, to follow
 ``ptlflow_tpu/nn/layers.py`` in reduced precision too.
@@ -12,6 +12,17 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+
+class CastConv2d(nn.Conv2d):
+    """``nn.Conv2d`` that runs in its input's dtype: weight and bias are
+    cast to ``x.dtype`` on every call, as every convolution of the JAX
+    package does.  A bfloat16 input then gives a bfloat16 output while the
+    stored weights stay float32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

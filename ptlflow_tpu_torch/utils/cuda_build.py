@@ -43,8 +43,8 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from csrc/ at first use")
 
 
-def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def _target(name: str, src: Optional[Path] = None) -> Path:
+    src = CSRC / f"{name}.cu" if src is None else src
     digest = hashlib.sha256(src.read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         digest.update(hdr.read_bytes())
@@ -84,6 +84,25 @@ def build_all(names: Optional[List[str]] = None
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return results
+
+
+def build_file(src: Path) -> Path:
+    """Compile a kernel source from outside ``csrc/`` (another version of a
+    kernel, to time beside the built one) into ``_build/``; returns the
+    library's path.  Raises if nvcc fails."""
+    src = Path(src).resolve()
+    target = _target(src.stem + "-ext", src)
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {src}:\n{res.stdout}")
+        os.replace(tmp, target)
+    return target
 
 
 def load(name: str) -> ctypes.CDLL:

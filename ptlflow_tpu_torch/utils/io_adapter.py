@@ -1,6 +1,7 @@
 """IOAdapter (``ptlflow_tpu/utils/io_adapter.py``): numpy HWC frames to the
 model's (B, N, 3, H, W) input on the model's device, and ``unscale`` to
-bring predictions back to the input resolution."""
+bring predictions back to the input resolution.  Without a model or a
+device the inputs go to the card, as ``get_model``'s models do."""
 
 from __future__ import annotations
 
@@ -23,8 +24,11 @@ class IOAdapter:
         self.output_stride = (output_stride if output_stride is not None
                               else getattr(model, "output_stride", 1))
         if device is None:
-            device = model.device if model is not None else "cpu"
+            device = model.device if model is not None else "cuda"
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                               "run on the CPU")
         self.target_size = target_size
         self.target_scale_factor = target_scale_factor
         self.interpolation_mode = interpolation_mode

@@ -38,6 +38,24 @@ def test_lookup_on_cpu_takes_plain_path():
         corr.corr_lookup_kernel(pyr, coords, 3)  # the kernel wants CUDA
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prepared_lookup_on_cpu_is_plain(dtype):
+    """make_corr_lookup on a CPU pyramid is the plain version, exactly, on
+    every call, and launches no kernel."""
+    pyr, coords = _inputs(26, 2, 3, 5, 7, 9, levels=4)
+    pyr = [p.to(dtype) for p in pyr]
+    before = corr.corr_lookup_kernel.launches
+    lookup = corr.make_corr_lookup(pyr, 4)
+    for shift in (0.0, 1.25, -3.5):
+        c = coords + shift
+        torch.testing.assert_close(
+            lookup(c), corr.corr_pyramid_lookup_plain(pyr, c, 4),
+            rtol=0, atol=0)
+    assert corr.corr_lookup_kernel.launches == before
+    with pytest.raises(ValueError):  # coords of another query count
+        lookup(coords[:, :, :2])
+
+
 def test_lookup_rejects_bad_inputs():
     pyr, coords = _inputs(24, 1, 4, 6, 8, 12, levels=3)
     with pytest.raises(TypeError):
@@ -48,6 +66,8 @@ def test_lookup_rejects_bad_inputs():
         corr.corr_pyramid_lookup(pyr, coords[:, :, :2], 3)
     with pytest.raises(ValueError):
         corr.corr_pyramid_lookup(pyr, coords, corr.MAX_RADIUS + 1)
+    with pytest.raises(ValueError):
+        corr.make_corr_lookup(pyr * 3, 3)  # 9 levels
 
 
 def test_plain_lookup_window_order():
@@ -76,26 +96,46 @@ def test_build_needs_nvcc():
         pytest.skip("this machine has nvcc")
 
 
+def _card_cases(radius):
+    """(label, pyramid, coords) on the CPU for the kernel-vs-plain test:
+    ragged tiles, odd map widths (bf16 rows at odd 2-byte offsets), an
+    empty level, one query, a prime Q, and coords far outside the map."""
+    cases = [("Q=77, odd W2", _inputs(25, 1, 7, 11, 14, 23)),
+             ("Q=37, W2=125", _inputs(27, 1, 1, 37, 9, 125, levels=3)),
+             ("Q=1", _inputs(28, 1, 1, 1, 8, 13)),
+             ("batch 2, 5x5 maps, empty level", _inputs(29, 2, 5, 5, 5, 5))]
+    pyr, coords = _inputs(30, 1, 3, 6, 10, 15)
+    far = torch.tensor([1e7, -1e7, 3.5, -2.5e6, 2.5])
+    coords[0, 0, 0, :5] = far  # x of the first row of queries
+    coords[0, 1, 1, :5] = far.flip(0)  # y of the second
+    cases.append(("coords at +-1e7", (pyr, coords)))
+    assert cases[3][1][0][-1].numel() == 0
+    return cases
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("radius,dtype", [(3, torch.float32),
-                                          (4, torch.float32),
-                                          (4, torch.bfloat16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", [0, 1, 3, 4, 8])
 def test_lookup_kernel_matches_plain_on_card(radius, dtype):
     """Hand-written kernel against its plain version, on the card: fp32 to
-    1e-5; bf16 compared in fp32 to one bf16 rounding (rtol 1e-2)."""
+    1e-5; bf16 compared in fp32 to one bf16 rounding (rtol 1e-2).  The
+    one-shot call and the prepared lookup both launch the kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    pyr, coords = _inputs(25, 1, 7, 11, 14, 22)  # Q = 77: a ragged tile
-    pyr = [p.to("cuda", dtype) for p in pyr]
-    coords = coords.cuda()
-    before = corr.corr_lookup_kernel.launches
-    got = corr.corr_pyramid_lookup(pyr, coords, radius)
-    torch.cuda.synchronize()
-    assert corr.corr_lookup_kernel.launches == before + 1
-    want = corr.corr_pyramid_lookup_plain(pyr, coords, radius)
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
-    else:
-        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
-                                   atol=1e-5)
+    for label, (pyr, coords) in _card_cases(radius):
+        pyr = [p.to("cuda", dtype) for p in pyr]
+        coords = coords.cuda()
+        before = corr.corr_lookup_kernel.launches
+        got = corr.corr_pyramid_lookup(pyr, coords, radius)
+        again = corr.make_corr_lookup(pyr, radius)(coords)
+        torch.cuda.synchronize()
+        assert corr.corr_lookup_kernel.launches == before + 2, label
+        torch.testing.assert_close(again, got, rtol=0, atol=0)
+        want = corr.corr_pyramid_lookup_plain(pyr, coords, radius)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5,
+                                       msg=label)
+        else:
+            torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                       atol=1e-5, msg=label)

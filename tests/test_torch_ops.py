@@ -96,6 +96,22 @@ def test_lookup_bf16_pyramid():
     assert np.abs(nhwc(got) - want).max() < 0.02 * np.abs(want).max()
 
 
+def test_plain_lookup_empty_levels_match_jax():
+    """5x5 maps pool to 2x2, 1x1 and 0x0: the empty level reads zeros and
+    the lookup still returns all L*(2r+1)^2 channels, as in JAX."""
+    rng = np.random.RandomState(32)
+    jpyr, tpyr = _pyramids(rng, (1, 5, 5), (1, 5, 5), c=8)
+    assert tuple(tpyr[-1].shape) == (25, 0, 0)
+    coords = _coords(rng, 1, 5, 5, -2.0, 7.0)
+    got = tcorr.corr_pyramid_lookup(tpyr, nchw(coords), 4)
+    assert got.shape == (1, 4 * 81, 5, 5)
+    assert not got[:, 3 * 81:].any()
+    for group in (0, None):
+        want = np.asarray(jcorr.corr_pyramid_lookup(
+            jpyr, jnp.asarray(coords), 4, group=group))
+        np.testing.assert_allclose(nhwc(got), want, atol=1e-5)
+
+
 # ------------------------------------------------------ pyramid and grid
 @pytest.mark.parametrize("dtype", [None, jnp.bfloat16])
 def test_build_corr_pyramid_matches_jax(dtype):
@@ -117,6 +133,23 @@ def test_build_corr_pyramid_matches_jax(dtype):
             # one bf16 rounding of the same fp32 product
             np.testing.assert_allclose(g.float().numpy(), ref,
                                        atol=1e-2 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("size", [(5, 5), (3, 3), (2, 7)])
+def test_build_corr_pyramid_small_maps_match_jax(size):
+    """Sides under 2 px pool to 0 px as the JAX package's avg_pool2d
+    floors them: the levels are empty, not an error."""
+    rng = np.random.RandomState(33)
+    f1 = rng.randn(1, *size, 8).astype(np.float32)
+    f2 = rng.randn(1, *size, 8).astype(np.float32)
+    want = jcorr.build_corr_pyramid(jnp.asarray(f1), jnp.asarray(f2), 4)
+    got = tcorr.build_corr_pyramid(nchw(f1), nchw(f2), 4)
+    assert [tuple(g.shape) for g in got] == [tuple(p.shape[:3])
+                                             for p in want]
+    assert got[-1].numel() == 0
+    for g, p in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(p[..., 0]),
+                                   atol=1e-5)
 
 
 def test_coords_grid_matches_jax():

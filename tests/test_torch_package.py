@@ -87,6 +87,17 @@ def test_get_model_defaults_to_the_card():
     assert model.device.type == "cpu" and not model.training
 
 
+def test_io_adapter_defaults_to_the_card():
+    """Without a model or a device, IOAdapter puts inputs on the card, as
+    get_model does, and raises where CUDA is absent."""
+    if torch.cuda.is_available():
+        assert IOAdapter(output_stride=8).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IOAdapter()
+    assert IOAdapter(device="cpu").device.type == "cpu"
+
+
 def test_seeded_weights_repeat():
     a = ptlflow_tpu_torch.get_model("raft_small", device="cpu")
     b = ptlflow_tpu_torch.get_model("raft_small", device="cpu")

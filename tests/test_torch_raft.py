@@ -6,6 +6,8 @@ the port, which must load them with ``strict=True``.  Inputs come from
 numpy seeds; the port is NCHW, the JAX package NHWC.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -135,6 +137,48 @@ def test_update_block_matches_jax(small):
                                    atol=1e-4)
 
 
+@pytest.mark.parametrize("small", [False, True])
+def test_motion_encoder_bf16_corr_matches_jax(small):
+    """A bf16 correlation runs the correlation convolutions in bf16, as in
+    the JAX package, and is promoted to fp32 where it meets the fp32 flow
+    features.  The corr branch agrees with the JAX package's to one bf16
+    rounding (rtol 1e-2, and 1e-2 of the largest value where the bias sum
+    cancels); the fp32 output, which carries those roundings through one
+    more convolution, to 2e-2 of its largest value."""
+    radius = 3 if small else 4
+    cls = "SmallMotionEncoder" if small else "BasicMotionEncoder"
+    jenc = getattr(jupd, cls)(4, radius)
+    tenc = getattr(tupd, cls)(4, radius)
+    params = carry(jenc, tenc, 6)
+    rng = np.random.RandomState(6)
+    corr = rng.randn(1, 6, 8, 4 * (2 * radius + 1) ** 2).astype(np.float32)
+    flow = rng.randn(1, 6, 8, 2).astype(np.float32)
+    jcorr_bf16 = jnp.asarray(corr).astype(jnp.bfloat16)
+    tcorr_bf16 = nchw(corr).to(torch.bfloat16)
+
+    jcor = jax.nn.relu(jenc.convc1(params["convc1"], jcorr_bf16))
+    if not small:
+        jcor = jax.nn.relu(jenc.convc2(params["convc2"], jcor))
+    seen = []
+    tenc.conv.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].dtype))
+    with torch.no_grad():
+        tcor = torch.relu(tenc.convc1(tcorr_bf16))
+        if not small:
+            tcor = torch.relu(tenc.convc2(tcor))
+        got = tenc(nchw(flow), tcorr_bf16)
+    assert jcor.dtype == jnp.bfloat16 and tcor.dtype == torch.bfloat16
+    want_cor = np.asarray(jcor.astype(jnp.float32))
+    np.testing.assert_allclose(nhwc(tcor), want_cor, rtol=1e-2,
+                               atol=1e-2 * np.abs(want_cor).max())
+
+    want = jenc(params, jnp.asarray(flow), jcorr_bf16)
+    assert want.dtype == jnp.float32 and got.dtype == torch.float32
+    assert seen == [torch.float32]  # torch.cat promoted the bf16 branch
+    want = np.asarray(want)
+    np.testing.assert_allclose(nhwc(got), want, atol=2e-2 * np.abs(want).max())
+
+
 # ----------------------------------------------------------- full model
 @pytest.mark.parametrize("name", ["raft", "raft_small"])
 def test_eval_forward_matches_jax(name):
@@ -162,6 +206,54 @@ def test_eval_forward_matches_jax(name):
                                np.asarray(want["flows"]), atol=5e-3)
     np.testing.assert_allclose(got["flow_small"].numpy(),
                                np.asarray(want["flow_small"]), atol=5e-3)
+
+
+def _jax_and_port(name, seed, iters, **args):
+    """The JAX model with random weights (norms randomised, flow head
+    damped) and the port's model on the CPU with the same weights."""
+    jmodel = ptlflow_tpu.get_model(name, args={"iters": iters, **args})
+    params = randomize_norms(np_tree(jmodel.init_params(seed=seed)),
+                             np.random.RandomState(seed))
+    damp_flow_head(params["update_block"])
+    jmodel.params = jax.tree_util.tree_map(jnp.asarray, params)
+    tmodel = ptlflow_tpu_torch.get_model(name, args={"iters": iters, **args},
+                                         device="cpu")
+    tmodel.load_state_dict(state_dict_from_jax(params), strict=True)
+    return jmodel, tmodel, params
+
+
+@pytest.mark.parametrize("name", ["raft", "raft_small"])
+def test_eval_forward_on_tiny_maps_matches_jax(name):
+    """40x40 gives 5x5 feature maps, whose pyramid ends in a 1x1 and an
+    empty level: the port answers as the JAX package does, to 5e-3 px."""
+    jmodel, tmodel, _ = _jax_and_port(name, 10, 3)
+    images = np.random.RandomState(10).rand(1, 2, 3, 40, 40).astype(
+        np.float32)
+    want = jmodel({"images": images})
+    got = tmodel({"images": torch.from_numpy(images)})
+    assert got["flows"].shape == (1, 1, 2, 40, 40)
+    np.testing.assert_allclose(got["flows"].numpy(),
+                               np.asarray(want["flows"]), atol=5e-3)
+
+
+@pytest.mark.parametrize("name", ["raft", "raft_small"])
+def test_mixed_precision_forward_matches_jax(name):
+    """One GRU iteration in mixed precision: the port's bf16 weights are
+    stored once, the JAX package casts its fp32 ones on every forward, and
+    the flows agree as closely as the JAX package's own fp32 and mixed
+    forwards do: mean |port - JAX mixed| is at most 1.5x mean |JAX fp32 -
+    JAX mixed| on the same inputs."""
+    jmixed, tmixed, params = _jax_and_port(name, 11, 1, mixed_precision=True)
+    jfp32 = ptlflow_tpu.get_model(name, args={"iters": 1})
+    jfp32.params = jmixed.params
+    assert tmixed.fnet.conv1.weight.dtype == torch.bfloat16
+    images = np.random.RandomState(11).rand(1, 2, 3, 64, 96).astype(
+        np.float32)
+    want = np.asarray(jmixed({"images": images})["flows"])
+    own = np.abs(np.asarray(jfp32({"images": images})["flows"]) - want)
+    got = tmixed({"images": torch.from_numpy(images)})["flows"].numpy()
+    assert np.isfinite(got).all() and own.mean() > 0
+    assert np.abs(got - want).mean() <= 1.5 * own.mean()
 
 
 @pytest.mark.parametrize("name", ["raft", "raft_small"])
@@ -204,6 +296,30 @@ def test_reduced_precision_forward(args):
         assert model.fnet.conv1.weight.dtype == torch.bfloat16
         assert model.cnet.norm1.weight.dtype == torch.bfloat16
         assert model.cnet.norm1.running_var.dtype == torch.float32
+
+
+def test_forward_prepares_the_lookup_once(monkeypatch):
+    """Like the JAX package, the forward builds the lookup once per
+    forward and calls it once per GRU iteration."""
+    # the module, not the class that the package re-exports under its name
+    traft = importlib.import_module("ptlflow_tpu_torch.models.raft.raft")
+    built, calls = [], []
+    make = traft.make_corr_lookup
+
+    def counting_make(pyramid, radius):
+        built.append(radius)
+        inner = make(pyramid, radius)
+
+        def lookup(coords):
+            calls.append(coords.shape)
+            return inner(coords)
+        return lookup
+
+    monkeypatch.setattr(traft, "make_corr_lookup", counting_make)
+    model = ptlflow_tpu_torch.get_model("raft_small", args={"iters": 3},
+                                        device="cpu")
+    model({"images": torch.zeros(1, 2, 3, 32, 48)})
+    assert built == [3] and len(calls) == 3
 
 
 def test_training_is_not_ported():
