@@ -5,22 +5,35 @@
 
 Phases, each of which must pass, else the script exits non-zero:
 
-1. build every CUDA kernel of ``ptlflow_tpu_torch/csrc`` with nvcc;
-2. hold each kernel against its plain PyTorch version on the card: the
-   lookup at radii 0, 1, 3, 4 and 8 in fp32 and bf16, on odd map widths,
-   an empty level, one query, a prime Q and coords far outside the map,
-   and at the main path's shapes;
+1. build every CUDA kernel of ``ptlflow_tpu_torch/csrc`` with nvcc, one
+   nvcc per source, all at once;
+2. hold each kernel against its plain PyTorch version on the card, at
+   radii 0, 1, 3, 4 and 8 in fp32 and bf16, on odd map widths, an empty
+   level, one query, a prime Q and coords far outside the map, and at the
+   main paths' shapes: the lookup, and the lookup's backward (which must
+   also give the same bits twice);
 3. serve 3 frame pairs at 436x1024 through ``raft`` and ``raft_small``
    (12 GRU iterations, seeded random weights) via IOAdapter -> model ->
    unscale, counting the kernel launches of each run (the model prepares
-   the lookup once per forward and launches it once per iteration);
+   the lookup once per forward and launches it once per iteration) and
+   checking that the eval forward builds no autograd graph; then serve two
+   consecutive pairs of one sequence through ``raft``, the second
+   warm-started from the first's ``flow_small``;
 4. run the same weights and input on the card and on the CPU (plain
-   versions) and compare the flows;
-5. time the kernel (CUDA events and the profiler's device time, L2 cold,
-   fp32 and bf16), its plain version and the PyTorch yardstick at the main
-   path's shapes, the host time of a one-shot and of a prepared lookup
-   call, the RAFT forward in fp32 and mixed precision, and profile one
-   forward.
+   versions) and compare the flows; then one train step of ``raft`` at
+   128x160, 2 iterations, on both, and compare the loss, every
+   parameter's gradient and the BatchNorm statistics;
+5. time the lookup kernel (CUDA events and the profiler's device time, L2
+   cold, fp32 and bf16), its plain version and the PyTorch yardstick at
+   the eval path's shapes, the host time of a one-shot and of a prepared
+   lookup call, the RAFT forward in fp32 and mixed precision, and profile
+   one forward;
+6. train ``raft`` at full width as ``raft-train1-chairs.yaml`` does (368x496
+   crops, batch 10, 12 iterations, AdamW + OneCycle, clip 1.0) for 5 steps
+   on seeded synthetic batches, counting both kernels' launches per step;
+7. time the backward kernel at the training shape against its plain
+   version and the backward of a ``grid_sample`` lookup, and profile one
+   train step.
 
 ``--against`` builds other versions of ``csrc/corr_lookup.cu`` (the same C
 interface) and times each in turns with the repo's kernel on the same
@@ -37,6 +50,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import os
 import subprocess
 import sys
@@ -55,6 +69,25 @@ ATOL_FP32 = 1e-5
 RTOL_BF16, ATOL_BF16 = 1e-2, 1e-5
 # Card against CPU, 12 iterations at 256x320, TF32 off (see phase 4).
 ATOL_CARD_CPU_PX = 1e-2
+# Backward kernel against its plain version: fp32 max |err| relative to the
+# largest gradient; bf16 as the forward.
+RTOL_BWD_FP32 = 1e-5
+# raft-train1-chairs.yaml (ptlflow_tpu/models/raft/configs): crops, batch
+TRAIN_B, TRAIN_H, TRAIN_W = 10, 368, 496
+TRAIN_STEPS = 5
+# Card against CPU, one train step at 128x160, 2 iterations: the loss within
+# RTOL_LOSS, the BatchNorm statistics within ATOL_BN, and the gradient of
+# the whole model, as one vector, within GRAD_RTOL of the CPU's by its
+# largest element and by its norm.  Tensor by tensor, 1e-3 of each tensor's
+# largest element does not hold between two fp32 implementations of this
+# step: a ReLU input within rounding of 0 takes either side, and behind a
+# norm on batch statistics one such flip moves a small tensor's gradient by
+# percents.  The per-tensor figures are printed beside those of the CPU
+# against itself with its input one rounding off (GRAD_FLOOR: the scale,
+# relative to the model's largest gradient, below which a tensor's
+# gradient is rounding, as where it is zero in exact arithmetic).
+GRAD_RTOL, GRAD_FLOOR = 1e-3, 1e-6
+RTOL_LOSS, ATOL_BN = 1e-5, 1e-5
 
 
 def card_tag() -> str:
@@ -166,21 +199,91 @@ def lookup_bound(torch, pyr, coords, radius: int) -> dict:
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
 
 
-def smooth_pair(seed: int, h: int, w: int, shift=(3, 2)):
-    """A smooth random BGR texture and its copy moved by ``shift`` (x, y)
-    pixels, as uint8 HWC frames."""
+def smooth_frames(seed: int, h: int, w: int, n: int = 2, shift=(3, 2)):
+    """``n`` frames of a smooth random BGR texture, frame k moved by k times
+    ``shift`` (x, y) pixels (at most 16 in all), as uint8 HWC frames."""
     import torch
     import torch.nn.functional as F
 
     rng = np.random.RandomState(seed)
-    m = 16
+    m = 16 * (n - 1)
     low = torch.from_numpy(rng.rand(1, 3, (h + 2 * m) // 8,
                                     (w + 2 * m) // 8).astype(np.float32))
     tex = F.interpolate(low, size=(h + 2 * m, w + 2 * m), mode="bicubic",
                         align_corners=False).clamp(0, 1)[0]
     tex = (tex.permute(1, 2, 0).numpy() * 255).astype(np.uint8)
     dx, dy = shift
-    return (tex[m:m + h, m:m + w], tex[m - dy:m - dy + h, m - dx:m - dx + w])
+    return [tex[m - k * dy:m - k * dy + h, m - k * dx:m - k * dx + w]
+            for k in range(n)]
+
+
+def smooth_pair(seed: int, h: int, w: int, shift=(3, 2)):
+    """A smooth random BGR texture and its copy moved by ``shift``."""
+    return tuple(smooth_frames(seed, h, w, 2, shift))
+
+
+def train_batch(torch, seed: int, b: int, h: int, w: int, dev) -> dict:
+    """A batch of the JAX package's train step in the port's layout:
+    ``images`` (B, 2, 3, H, W) in [0, 1], ``b`` smooth pairs each moved by
+    its own whole-pixel shift; ``flows`` (B, 1, 2, H, W), that shift; and
+    ``valids`` (B, 1, 1, H, W), a fifth of the pixels 0."""
+    rng = np.random.RandomState(seed)
+    images, flows = [], []
+    for k in range(b):
+        shift = (int(rng.randint(-4, 5)), int(rng.randint(-4, 5)))
+        images.append(np.stack(smooth_pair(seed * 100 + k, h, w, shift)))
+        flows.append(np.broadcast_to(
+            np.array(shift, np.float32)[:, None, None], (2, h, w)))
+    images = torch.from_numpy(np.stack(images).astype(np.float32) / 255.0)
+    valids = (rng.rand(b, 1, 1, h, w) > 0.2).astype(np.float32)
+    return {"images": images.permute(0, 1, 4, 2, 3).contiguous().to(dev),
+            "flows": torch.from_numpy(np.stack(flows)[:, None]).to(dev),
+            "valids": torch.from_numpy(valids).to(dev)}
+
+
+def grid_sample_lookup(torch, pyr, coords, radius: int):
+    """The lookup by one ``torch.nn.functional.grid_sample`` per level and a
+    ``cat``: the PyTorch yardstick only, the port never calls it."""
+    b, _, h1, w1 = coords.shape
+    n = 2 * radius + 1
+    d = torch.linspace(-radius, radius, n, device=coords.device)
+    delta = torch.stack(torch.meshgrid(d, d, indexing="ij"), dim=-1)
+    cen = coords.permute(0, 2, 3, 1).reshape(-1, 1, 1, 2)
+    outs = []
+    for i, lvl in enumerate(pyr):
+        h2, w2 = lvl.shape[1:]
+        c = cen / 2 ** i + delta.view(1, n, n, 2)
+        grid = torch.stack([2 * c[..., 0] / (w2 - 1) - 1,
+                            2 * c[..., 1] / (h2 - 1) - 1], dim=-1)
+        s = torch.nn.functional.grid_sample(lvl[:, None], grid,
+                                            align_corners=True)
+        outs.append(s.view(b, h1, w1, -1))
+    return torch.cat(outs, dim=-1).permute(0, 3, 1, 2).contiguous()
+
+
+def backward_bound(torch, grad_out, coords, shapes, radius: int) -> dict:
+    """Least time of one backward launch on this card: grad_out and the
+    coords read once and every level's dense gradient written once, over
+    the memory rate; or its operations (at most 4 taps of a multiply, a
+    multiply and an add per in-range patch cell of these coords) over the
+    fp32 rate; whichever is larger."""
+    q = coords.shape[0] * coords.shape[2] * coords.shape[3]
+    elt = grad_out.element_size()
+    dense = q * sum(h * w for h, w in shapes) * elt
+    nbytes = grad_out.numel() * elt + coords.numel() * 4 + dense
+    elems, _ = patch_traffic(torch, coords, shapes, radius, elt)
+    ops = 12 * elems
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "dense_bytes": dense, "ops": ops,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def bn_stats(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
 
 
 def damp_flow_head(model, factor: float = 0.03) -> None:
@@ -327,6 +430,59 @@ def main(argv=None) -> int:
         f"{worst[torch.float32]:.3e} (tolerance {ATOL_FP32}), worst bf16 "
         f"|err| {worst[torch.bfloat16]:.3e} (rtol {RTOL_BF16})")
 
+    # the backward: the same edge cases, and raft's training shape
+    th, tw = -(-TRAIN_H // 8), -(-TRAIN_W // 8)
+    bwd_cases = [c for c in cases if not c[0].startswith(("raft ", "raft_"))]
+    bwd_cases += [(f"raft train Q={TRAIN_B * th * tw}, r=4",
+                   (TRAIN_B, th, tw, th, tw, 256, -0.1, 1.1), 4, dtype)
+                  for dtype in (torch.float32, torch.bfloat16)]
+    worst_bwd = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    train_inputs, bwd_err, bwd_gmax = None, None, None
+    for label, shape, radius, dtype in bwd_cases:
+        pyr, coords = case_inputs(*shape)
+        if label.startswith("coords at"):
+            coords[0, 0, 0, :5] = far
+            coords[0, 1, 1, :5] = far.flip(0)
+        shapes = [tuple(p.shape[1:]) for p in pyr]
+        b, _, h1, w1 = coords.shape
+        grad = randn(b, len(pyr) * (2 * radius + 1) ** 2, h1, w1).to(dtype)
+        got = corr.corr_lookup_backward_kernel(grad, coords, shapes, radius)
+        again = corr.corr_lookup_backward_kernel(grad, coords, shapes,
+                                                 radius)
+        torch.cuda.synchronize()
+        want = corr.corr_pyramid_lookup_backward_plain(grad, coords, shapes,
+                                                       radius)
+        for gk, ga, wp in zip(got, again, want):
+            if gk.dtype != dtype or gk.shape != wp.shape:
+                raise AssertionError(f"{label}: backward gives {gk.dtype} "
+                                     f"{tuple(gk.shape)}")
+            if not torch.equal(gk, ga):
+                raise AssertionError(f"{label}: two backward launches differ")
+        live = [(gk.float(), wp.float()) for gk, wp in zip(got, want)
+                if wp.numel()]
+        err = max((gk - wp).abs().max().item() for gk, wp in live)
+        gmax = max(wp.abs().max().item() for _, wp in live)
+        rel = err / max(gmax, 1e-30)
+        worst_bwd[dtype] = max(worst_bwd[dtype], rel)
+        log(f"[2 backward vs plain] {label}, {str(dtype)[6:]}: levels "
+            f"{shapes}, max |err| {err:.3e} of max |grad| {gmax:.3e}, "
+            f"two launches bitwise equal")
+        if dtype == torch.float32:
+            if not err <= RTOL_BWD_FP32 * gmax:
+                raise AssertionError(f"{label}: backward |err| {err}")
+        else:
+            for gk, wp in live:
+                torch.testing.assert_close(gk, wp, rtol=RTOL_BF16,
+                                           atol=ATOL_BF16)
+        if label.startswith("raft train") and dtype == torch.float32:
+            train_inputs = (pyr, coords, grad)
+            bwd_err, bwd_gmax = err, gmax
+        del got, again, want, live
+    log(f"[2 backward vs plain] {len(bwd_cases)} cases pass: worst fp32 "
+        f"|err| / max |grad| {worst_bwd[torch.float32]:.3e} (tolerance "
+        f"{RTOL_BWD_FP32}), worst bf16 {worst_bwd[torch.bfloat16]:.3e} (rtol "
+        f"{RTOL_BF16}); bitwise repeatable")
+
     # ---------------------------------------------------------------- 3
     pairs = [smooth_pair(seed, H, W, shift=(2 + seed, 1 + seed))
              for seed in range(3)]
@@ -344,18 +500,50 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{name}: flows {tuple(flows.shape)}")
             if not torch.isfinite(flows).all():
                 raise AssertionError(f"{name}: non-finite flows")
+            if (flows.grad_fn is not None
+                    or out["flow_small"].grad_fn is not None):
+                raise AssertionError(f"{name}: the eval forward built an "
+                                     f"autograd graph")
             n = corr.corr_lookup_kernel.launches - before
             if n != ITERS:
                 raise AssertionError(f"{name}: {n} lookup launches in one "
                                      f"forward, expected {ITERS}")
             mean = flows.mean(dim=(0, 1, 3, 4)).tolist()
             log(f"[3 serve] {name} request {k}: flows {tuple(flows.shape)} "
-                f"finite, mean flow ({mean[0]:.3f}, {mean[1]:.3f}) px, "
-                f"{n} lookup launches")
+                f"finite, no grad_fn, mean flow ({mean[0]:.3f}, "
+                f"{mean[1]:.3f}) px, {n} lookup launches")
         launches[name] = corr.corr_lookup_kernel.launches
         if launches[name] != ITERS * len(pairs):
             raise AssertionError(f"{name}: {launches[name]} launches")
         del model
+
+    # warm start: frames 0-1 of a sequence, then frames 1-2 from there
+    frames = smooth_frames(21, H, W, 3, shift=(3, 2))
+    model = ptlflow_tpu_torch.get_model("raft", args={"iters": ITERS})
+    damp_flow_head(model)  # steps of trained size, as in phase 4
+    adapter = IOAdapter(model)
+    x1 = adapter.prepare_inputs(frames[1:])
+    corr.corr_lookup_kernel.launches = 0
+    first = model(adapter.prepare_inputs(frames[:2]))
+    warm = model(dict(x1, prev_preds={"flow_small": first["flow_small"]}))
+    torch.cuda.synchronize()
+    launches["raft warm start"] = corr.corr_lookup_kernel.launches
+    cold = model(x1)
+    if launches["raft warm start"] != 2 * ITERS:
+        raise AssertionError(f"warm start: {launches['raft warm start']} "
+                             f"lookup launches for two requests")
+    for label, out in (("first", first), ("warm", warm)):
+        if not torch.isfinite(out["flows"]).all():
+            raise AssertionError(f"warm start: non-finite {label} flows")
+        if out["flows"].grad_fn is not None:
+            raise AssertionError("warm start: an autograd graph")
+    mean = warm["flows"].mean(dim=(0, 1, 3, 4)).tolist()
+    moved = (warm["flows"] - cold["flows"]).abs().mean().item()
+    log(f"[3 warm start] raft, two consecutive pairs at {W}x{H}: "
+        f"{launches['raft warm start']} lookup launches, warm-started flows "
+        f"finite, mean ({mean[0]:.3f}, {mean[1]:.3f}) px (true motion 3, 2), "
+        f"mean |warm - cold| {moved:.4f} px")
+    del model, first, warm, cold
 
     # ---------------------------------------------------------------- 4
     for name in ("raft", "raft_small"):
@@ -374,6 +562,72 @@ def main(argv=None) -> int:
             f"tolerance {ATOL_CARD_CPU_PX} px)")
         if not diff <= ATOL_CARD_CPU_PX:
             raise AssertionError(f"{name}: card and CPU differ by {diff} px")
+
+    # one train step's gradients, card against CPU
+    from ptlflow_tpu_torch.nn import split_trainable
+    from ptlflow_tpu_torch.parallel import train as ttrain
+
+    cpu_model = ptlflow_tpu_torch.get_model("raft", args={"iters": 2},
+                                            device="cpu")
+    damp_flow_head(cpu_model)
+    gpu_model = ptlflow_tpu_torch.get_model("raft", args={"iters": 2})
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    batch = train_batch(torch, 5, 2, 128, 160, "cpu")
+    # the CPU again, on images one fp32 rounding off (x (1 + 2^-23))
+    nudged = dict(batch, images=batch["images"] * (1 + 2.0 ** -23))
+    step_out = {}
+    for label, model, where, b in (("cpu", cpu_model, "cpu", batch),
+                                   ("card", gpu_model, dev, batch),
+                                   ("cpu nudged", cpu_model, "cpu", nudged)):
+        params, _ = split_trainable(model)
+        corr.corr_lookup_kernel.launches = 0
+        corr.corr_lookup_backward_kernel.launches = 0
+        loss, grads = ttrain.loss_and_grads(
+            model, params, {k: v.to(where) for k, v in b.items()})
+        step_out[label] = (loss.item(), list(params), [g.cpu() for g in grads],
+                           {k: v.cpu() for k, v in bn_stats(model).items()},
+                           ttrain.global_norm(grads).item())
+        if label == "card" and (
+                corr.corr_lookup_kernel.launches,
+                corr.corr_lookup_backward_kernel.launches) != (2, 2):
+            raise AssertionError("card train step: expected 2 launches of "
+                                 "each kernel")
+    (cl, names, cg, cs, cn), (gl, _, gg, gs, gn) = (step_out["cpu"],
+                                                    step_out["card"])
+    gmax = max(g.abs().max().item() for g in cg)
+    flat = torch.cat([g.flatten() for g in cg])
+    dflat = torch.cat([(a - b).flatten() for a, b in zip(gg, cg)])
+    glob_max = dflat.abs().max().item() / gmax
+    glob_norm = (dflat.norm() / flat.norm()).item()
+
+    def per_tensor(grads):
+        return sorted(((a - b).abs().max().item()
+                       / max(b.abs().max().item(), GRAD_FLOOR / GRAD_RTOL
+                             * gmax), n) for n, a, b in zip(names, grads, cg))
+
+    bn_err = max((gs[k] - cs[k]).abs().max().item() for k in cs)
+    for label, grads in (("card", gg), ("CPU, input one rounding off",
+                                        step_out["cpu nudged"][2])):
+        ratios = per_tensor(grads)
+        log(f"[4 card vs cpu] train step, {label} against the CPU: worst "
+            f"per-tensor max |dg| / max(max |g|, "
+            f"{GRAD_FLOOR / GRAD_RTOL:g} max |g| of the model): "
+            + ", ".join(f"{n} {r:.2e}" for r, n in ratios[-4:])
+            + f" ({sum(r > GRAD_RTOL for r, _ in ratios)} of {len(ratios)} "
+            f"over {GRAD_RTOL})")
+    log(f"[4 card vs cpu] raft train step, 2x128x160, 2 iters: loss "
+        f"{gl:.7f} on the card, {cl:.7f} on the CPU; grad norm {gn:.6f} / "
+        f"{cn:.6f}; the whole gradient: max |dg| / max |g| {glob_max:.2e}, "
+        f"|dg| / |g| {glob_norm:.2e} (tolerance {GRAD_RTOL}); BN statistics "
+        f"max |d| {bn_err:.2e} (tolerance {ATOL_BN})")
+    if not abs(gl - cl) <= RTOL_LOSS * abs(cl):
+        raise AssertionError(f"card train step: loss {gl} against {cl}")
+    if not bn_err <= ATOL_BN:
+        raise AssertionError(f"card train step: BN statistics {bn_err}")
+    if not (glob_max <= GRAD_RTOL and glob_norm <= GRAD_RTOL):
+        raise AssertionError(f"card train step: gradient {glob_max}, "
+                             f"{glob_norm}")
+    del cpu_model, gpu_model, step_out
 
     # ---------------------------------------------------------------- 5
     pyr, coords = main_inputs[torch.float32]
@@ -395,28 +649,11 @@ def main(argv=None) -> int:
     bf16_profiler_ms = profiled_ms(torch, lambda: bf16_lookup(bf16_coords),
                                    reps, flush)
 
-    def grid_sample_lookup():
-        # one torch.nn.functional.grid_sample per level + cat: the
-        # yardstick only, the port never calls it
-        b, _, h1, w1 = coords.shape
-        n = 2 * radius + 1
-        d = torch.linspace(-radius, radius, n, device=dev)
-        delta = torch.stack(torch.meshgrid(d, d, indexing="ij"), dim=-1)
-        cen = coords.permute(0, 2, 3, 1).reshape(-1, 1, 1, 2)
-        outs = []
-        for i, lvl in enumerate(pyr):
-            h2, w2 = lvl.shape[1:]
-            c = cen / 2 ** i + delta.view(1, n, n, 2)
-            grid = torch.stack([2 * c[..., 0] / (w2 - 1) - 1,
-                                2 * c[..., 1] / (h2 - 1) - 1], dim=-1)
-            s = torch.nn.functional.grid_sample(lvl[:, None], grid,
-                                                align_corners=True)
-            outs.append(s.view(b, h1, w1, -1))
-        return torch.cat(outs, dim=-1).permute(0, 3, 1, 2).contiguous()
-
-    lib_out = grid_sample_lookup()
+    lib_out = grid_sample_lookup(torch, pyr, coords, radius)
     lib_err = (lib_out - lookup(coords)).abs().max().item()
-    library_ms = timed_ms(torch, grid_sample_lookup, reps, flush)
+    library_ms = timed_ms(
+        torch, lambda: grid_sample_lookup(torch, pyr, coords, radius), reps,
+        flush)
     warm_ms = timed_ms(torch, lambda: [lookup(coords) for _ in range(20)],
                        5) / 20
 
@@ -485,7 +722,7 @@ def main(argv=None) -> int:
         for label, (p_, c_), mine in (("fp32", (pyr, coords), lookup),
                                       ("bf16", (bf16_pyr, bf16_coords),
                                        bf16_lookup)):
-            other = corr._kernel_lookup(p_, radius, other_lib)
+            other = corr._KernelLookup(p_, radius, other_lib)
             err = (other(c_).float() - mine(c_).float()).abs().max().item()
             turns = [timed_ms(torch, (lambda: other(c_)) if k % 3 == 0
                               else (lambda: mine(c_)), reps, flush)
@@ -531,6 +768,138 @@ def main(argv=None) -> int:
         profile_forward(torch, model, images, label, tag, ms)
         del model
 
+    # ---------------------------------------------------------------- 6
+    model = ptlflow_tpu_torch.get_model(
+        "raft", args={"iters": ITERS, "corr_levels": 4, "corr_radius": 4,
+                      "gamma": 0.8, "max_flow": 400.0})
+    tx = ttrain.make_optimizer(lr=4e-4, wdecay=1e-4, total_steps=120000,
+                               pct_start=0.05, grad_clip=1.0)
+    step = ttrain.build_train_step(model, tx)
+    state = ttrain.create_train_state(model, tx)
+    params_before = {k: v.detach().clone() for k, v in state.params.items()}
+    stats_before = bn_stats(model)
+    batches = [train_batch(torch, 100 + k, TRAIN_B, TRAIN_H, TRAIN_W, dev)
+               for k in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train = {"step_ms": [], "loss": [], "grad_norm": [], "lookup": [],
+             "lookup_backward": []}
+    for k, batch in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        corr.corr_lookup_kernel.launches = 0
+        corr.corr_lookup_backward_kernel.launches = 0
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        end.synchronize()
+        train["lookup"].append(corr.corr_lookup_kernel.launches)
+        train["lookup_backward"].append(
+            corr.corr_lookup_backward_kernel.launches)
+        train["step_ms"].append(start.elapsed_time(end))
+        train["loss"].append(metrics["loss"].item())
+        train["grad_norm"].append(metrics["grad_norm"].item())
+        log(f"[6 train] [{tag}] raft step {k + 1}: loss "
+            f"{train['loss'][-1]:.5f}, grad norm "
+            f"{train['grad_norm'][-1]:.5f}, "
+            f"{train['step_ms'][-1]:.3f} ms by CUDA events, "
+            f"{train['lookup'][-1]} lookup and {train['lookup_backward'][-1]} "
+            f"backward launches")
+        if not (math.isfinite(train["loss"][-1])
+                and math.isfinite(train["grad_norm"][-1])):
+            raise AssertionError(f"train step {k + 1}: non-finite metrics")
+        if (train["lookup"][-1], train["lookup_backward"][-1]) != (ITERS,
+                                                                   ITERS):
+            raise AssertionError(f"train step {k + 1}: expected {ITERS} "
+                                 f"launches of each kernel")
+    if state.step != TRAIN_STEPS or state.opt_state.count != TRAIN_STEPS:
+        raise AssertionError("train state did not advance once per step")
+    moved_p = sum(not torch.equal(v, params_before[k])
+                  for k, v in state.params.items())
+    stats_after = bn_stats(model)
+    moved_s = sum(not torch.equal(v, stats_before[k])
+                  for k, v in stats_after.items())
+    later = sorted(train["step_ms"][1:])
+    step_ms = (later[1] + later[2]) / 2  # median of steps 2-5
+    train.update(median_step_ms=step_ms,
+                 samples_per_s=TRAIN_B / step_ms * 1e3,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 params_moved=[moved_p, len(state.params)],
+                 bn_stats_moved=[moved_s, len(stats_after)])
+    log(f"[6 train] [{tag}] raft {TRAIN_W}x{TRAIN_H}, batch {TRAIN_B}, "
+        f"{ITERS} iters, fp32 (TF32 off): {step_ms:.3f} ms per step (median "
+        f"of steps 2-{TRAIN_STEPS}), {train['samples_per_s']:.2f} samples/s, "
+        f"peak {train['peak_gib']:.2f} GiB allocated; {moved_p} of "
+        f"{len(state.params)} trainable tensors and {moved_s} of "
+        f"{len(stats_after)} BatchNorm statistics changed")
+    # the norm3 of each stride-2 block is kept for the checkpoints and never
+    # run: 2 BatchNorms of cnet, 4 statistics
+    if moved_p < 0.9 * len(state.params) or moved_s < len(stats_after) - 4:
+        raise AssertionError("training left the weights or the BatchNorm "
+                             "statistics in place")
+    profile_batch = batches[-1]
+    del params_before, batches
+
+    # ---------------------------------------------------------------- 7
+    pyr_t, coords_t, grad_t = train_inputs
+    shapes_t = [tuple(p.shape[1:]) for p in pyr_t]
+
+    def bwd():
+        return corr.corr_lookup_backward_kernel(grad_t, coords_t, shapes_t, 4)
+
+    bwd_reps = 20
+    bwd_ms = timed_ms(torch, bwd, bwd_reps, flush)
+    bwd_profiler_ms = profiled_ms(torch, bwd, bwd_reps, flush,
+                                  name="corr_lookup_backward")
+    bwd_plain_ms = timed_ms(
+        torch, lambda: corr.corr_pyramid_lookup_backward_plain(
+            grad_t, coords_t, shapes_t, 4), 3, flush)
+    levels = [p.detach().requires_grad_() for p in pyr_t]
+    gs_out = grid_sample_lookup(torch, levels, coords_t, 4)
+    gs_err = max((a - b).abs().max().item() for a, b in zip(
+        torch.autograd.grad(gs_out, levels, grad_t, retain_graph=True),
+        bwd()))
+    bwd_library_ms = timed_ms(torch, lambda: torch.autograd.grad(
+        gs_out, levels, grad_t, retain_graph=True), 5, flush)
+    del gs_out, levels
+    bb = backward_bound(torch, grad_t, coords_t, shapes_t, 4)
+    # autograd's sums of the 12 dense per-iteration level gradients: one
+    # sum of every level, by events, times 11
+    parts = [(torch.empty((coords_t.shape[0] * th * tw, h, w_), device=dev),
+              torch.empty((coords_t.shape[0] * th * tw, h, w_), device=dev))
+             for h, w_ in shapes_t]
+    sum_ms = timed_ms(torch, lambda: [a + b for a, b in parts], 10, flush)
+    del parts
+    log(f"[7 backward] [{tag}] Q={coords_t.shape[0] * th * tw}, levels "
+        f"{shapes_t}, r=4, fp32, L2 flushed per launch: kernel "
+        f"{bwd_ms:.4f} ms by CUDA events, {fmt_ms(bwd_profiler_ms)} device "
+        f"time by the profiler; plain {bwd_plain_ms:.4f} ms; backward of the "
+        f"grid_sample lookup {bwd_library_ms:.4f} ms (max |diff| to the "
+        f"kernel {gs_err:.2e}); bound {bb['bytes']} bytes "
+        f"({bb['dense_bytes']} of dense level gradients) -> "
+        f"{bb['bytes_ms']:.5f} ms at 3.35 TB/s, {bb['ops']} operations -> "
+        f"{bb['ops_ms']:.5f} ms, so {bb['bound_ms']:.5f} ms by "
+        f"{bb['bound_by']}, kernel at {bb['bound_ms'] / bwd_ms:.1%} of it; "
+        f"one sum of every level's dense gradient {sum_ms:.4f} ms, x11 per "
+        f"step {11 * sum_ms:.3f} ms")
+    train_profile = profile_train_step(
+        torch, step, state, profile_batch,
+        [(coords_t.shape[0] * th * tw, h, w_) for h, w_ in shapes_t], tag,
+        step_ms)
+    # the same step with cuDNN's algorithms chosen by timing, not by its
+    # heuristics: a measurement for later work, the port does not set it
+    torch.backends.cudnn.benchmark = True
+    for _ in range(2):  # the first steps time the algorithms
+        state, _ = step(state, profile_batch)
+    bench_ms = sorted(timed_ms(torch, lambda: step(state, profile_batch), 1)
+                      for _ in range(3))[1]
+    torch.backends.cudnn.benchmark = False
+    train["cudnn_benchmark_step_ms"] = bench_ms
+    log(f"[7 train] [{tag}] the same step with torch.backends.cudnn.benchmark "
+        f"on: {bench_ms:.3f} ms (median of 3, after 2 steps that time the "
+        f"algorithms), against {step_ms:.3f} ms")
+    del model, state, step, pyr_t, coords_t, grad_t, train_inputs
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -561,10 +930,32 @@ def main(argv=None) -> int:
         "bf16_bound_ms": bf16_bound["bound_ms"],
         "host_us_one_shot": host_us_one_shot,
         "host_us_prepared": host_us_prepared,
+        "train_launches_per_step": train["lookup"],
+    }, {
+        "name": "corr_lookup_backward",
+        "route": "cuda",
+        "source": "ptlflow_tpu_torch/csrc/corr_lookup_backward.cu",
+        "replaces": "ptlflow_tpu/ops/correlation.py:456",
+        "replaces_note": "no Pallas counterpart: the JAX package trains "
+                         "through jax.grad of its XLA lookup",
+        "launches": sum(train["lookup_backward"]),
+        "launches_per_step": train["lookup_backward"],
+        "max_abs_err": bwd_err,
+        "max_abs_grad": bwd_gmax,
+        "ms": bwd_ms,
+        "plain_ms": bwd_plain_ms,
+        "bound_ms": bb["bound_ms"],
+        "bound_by": bb["bound_by"],
+        "library_ms": bwd_library_ms,
+        "profiler_ms": bwd_profiler_ms,
+        "bound_bytes": bb["bytes"],
+        "level_sums_ms": 11 * sum_ms,
     }]
     if against:
         kernels[0]["against"] = against
     log(json.dumps({"forward_ms": fwd, "card": tag}))
+    log(json.dumps({"train": train, "train_profile": train_profile,
+                    "card": tag}))
     log(tag)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -609,6 +1000,86 @@ def profile_forward(torch, model, images, label: str, tag: str,
         f"({lookup / busy:.1%} of kernel time)")
     for ms, count, key in rows[:12]:
         log(f"  {ms:9.3f} ms  {count:5d}x  {key[:100]}")
+
+
+def profile_train_step(torch, step, state, batch, level_shapes, tag: str,
+                       event_ms: float) -> dict:
+    """Device time by kernel over one train step (torch.profiler, shapes
+    recorded), after a discarded profiled step: the idle share against the
+    unprofiled step time ``event_ms``, the top kernels, both lookup
+    kernels, and autograd's sums of dense level gradients (the adds whose
+    inputs have a level's (Q, H2, W2) shape).  The weights move on by two
+    steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=acts, record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e, self_only=True):
+        names = (("self_device_time_total", "self_cuda_time_total")
+                 if self_only else ("device_time_total", "cuda_time_total"))
+        for n in names:
+            v = getattr(e, n, None)
+            if v:
+                return v
+        return 0
+
+    rows = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = dev_us(e)
+            if us > 0:
+                rows.append((us / 1e3, e.count, e.key))
+    if not rows:
+        log(f"[7 profile] [{tag}] train step: no device time recorded: not "
+            f"measured")
+        return {"busy_ms": None}
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    # kernels of several streams overlap (cuDNN's FFT convolutions), so the
+    # card's busy time is the union of their intervals, not their sum
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    union, lo, hi = 0.0, None, None
+    for start, end in spans:
+        if hi is None or start > hi:
+            union += 0.0 if hi is None else hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    union = (union + (0.0 if hi is None else hi - lo)) / 1e3
+    fwd = sum(r[0] for r in rows if "corr_lookup" in r[2]
+              and "backward" not in r[2])
+    bwd = sum(r[0] for r in rows if "corr_lookup_backward" in r[2])
+    shapes = {tuple(s) for s in level_shapes}
+    sums_ms, sums_n = 0.0, 0
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key in ("aten::add", "aten::add_") and any(
+                tuple(s) in shapes for s in (e.input_shapes or [])):
+            sums_ms += dev_us(e, self_only=False) / 1e3
+            sums_n += e.count
+    log(f"[7 profile] [{tag}] raft train step under the profiler: "
+        f"{busy:.3f} ms of kernels ({sum(r[1] for r in rows)} launches), "
+        f"busy {union:.3f} ms (the union of their intervals), in "
+        f"{wall_ms:.3f} ms wall; against the unprofiled {event_ms:.3f} ms "
+        f"step the card idles {1 - union / event_ms:.1%}; lookup {fwd:.3f} "
+        f"ms, lookup backward {bwd:.3f} ms, dense level-gradient sums "
+        f"{sums_ms:.3f} ms in {sums_n} adds ({sums_ms / busy:.1%} of kernel "
+        f"time)")
+    for ms, count, key in rows[:15]:
+        log(f"  {ms:9.3f} ms  {count:5d}x  {key[:100]}")
+    return {"busy_ms": busy, "busy_union_ms": union, "wall_ms": wall_ms,
+            "idle": 1 - union / event_ms,
+            "lookup_ms": fwd, "lookup_backward_ms": bwd,
+            "level_sums_ms": sums_ms, "level_sums_adds": sums_n,
+            "top": [[ms, n, key[:80]] for ms, n, key in rows[:15]]}
 
 
 if __name__ == "__main__":

@@ -2,7 +2,9 @@
 as a ``torch.nn.Module``.
 
 - ``forward(inputs)`` takes ``images`` (B, N, 3, H, W), BGR in [0, 1], and
-  returns ``flows`` (B, 1, 2, H, W) at input scale;
+  returns ``flows`` (B, 1, 2, H, W) at input scale; a trainable model's
+  ``forward(inputs, training=True)`` also returns what its ``loss_fn``
+  (outputs, inputs) reads;
 - ``preprocess_images`` shifts and scales BGR, optionally flips to RGB and
   pads or interpolates to a stride multiple; ``postprocess_predictions``
   undoes the resizing.
@@ -13,7 +15,7 @@ Everything is NCHW, so unlike the JAX package no layout moves happen here.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -36,10 +38,16 @@ def bgr_val_as_tensor(val, like: torch.Tensor) -> torch.Tensor:
 
 class BaseModel(nn.Module):
     pretrained_checkpoints: Dict[str, str] = {}
+    # dotted module paths excluded from optimization (frozen backbones,
+    # requires_grad=False in the reference); see nn.split_trainable
+    frozen_prefixes: Tuple[str, ...] = ()
 
-    def __init__(self, output_stride: int = 1, **kwargs):
+    def __init__(self, output_stride: int = 1,
+                 loss_fn: Optional[Callable] = None, **kwargs):
         super().__init__()
         self.output_stride = output_stride
+        # a plain callable, not a module: it holds no state_dict entries
+        self.loss_fn = loss_fn
         self.train_size = None
         self.train_avg_length = None
         self.extra_params = None
@@ -72,8 +80,8 @@ class BaseModel(nn.Module):
                 mod.reset_parameters()
         return self
 
-    def forward(self, inputs: Dict[str, torch.Tensor]
-                ) -> Dict[str, torch.Tensor]:
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                training: bool = False) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
     def preprocess_images(

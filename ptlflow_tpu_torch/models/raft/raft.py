@@ -1,33 +1,59 @@
-"""RAFT eval forward (``ptlflow_tpu/models/raft/raft.py``), NCHW.
+"""RAFT (``ptlflow_tpu/models/raft/raft.py``), NCHW: the eval forward with
+its warm start, the training forward and ``SequenceLoss``.
 
 Same preprocessing (BGR shifted by -0.5 and scaled by 2, BGR->RGB,
 replicate padding to /8 on both sides), correlation pyramid, lookup order,
 update block and convex upsampling as the JAX package.  The lookup is
 prepared once per forward (``make_corr_lookup``) and the GRU iterations are
-a Python loop; each one launches the lookup kernel once.
-
-Only the eval path is ported: training (the ``flow_preds`` stack, the
-sequence loss, backward), the warm start from ``prev_preds`` and the
-spatially sharded correlation are queued in ROADMAP.md.  ``alternate_corr``
-is accepted and, as in the JAX package's RAFT, computes the same pyramid.
+a Python loop; each one launches the lookup kernel once, and in training
+its backward kernel once.  ``alternate_corr`` is accepted and, as in the
+JAX package's RAFT, computes the same pyramid.  The spatially sharded
+correlation is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
-from ...nn import cast_params
+from ...nn import cast_params, train_mode
 from ...ops.correlation import (build_corr_pyramid, coords_grid,
                                 make_corr_lookup)
 from ...ops.upsample import convex_upsample, upflow
+from ...ops.warp import forward_interpolate
 from ...utils.registry import ptlflow_trained, register_model, trainable
 from ..base import BaseModel
 from .extractor import BasicEncoder, SmallEncoder
 from .update import BasicUpdateBlock, SmallUpdateBlock
 
 _DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class SequenceLoss:
+    """gamma-weighted L1 over the iteration sequence: the sum over
+    iterations i of gamma^(n-i-1) times the mean, over B, both channels, H
+    and W, of valid * |pred_i - gt|, where valid means ``valids >= 0.5`` and
+    |gt| < ``max_flow``."""
+
+    def __init__(self, gamma: float, max_flow: float):
+        self.gamma = gamma
+        self.max_flow = max_flow
+
+    def __call__(self, outputs: Dict[str, torch.Tensor],
+                 inputs: Dict[str, Any]) -> torch.Tensor:
+        flow_preds = outputs["flow_preds"]  # (iters, B, 2, H, W)
+        flow_gt = inputs["flows"][:, 0]  # (B, 2, H, W)
+        valid = inputs["valids"][:, 0]  # (B, 1, H, W)
+        n = flow_preds.shape[0]
+        mag = torch.sqrt(torch.sum(flow_gt ** 2, dim=1, keepdim=True))
+        valid = ((valid >= 0.5) & (mag < self.max_flow)).to(flow_gt.dtype)
+        exponents = torch.arange(n - 1, -1, -1, dtype=torch.float32,
+                                 device=flow_preds.device)
+        weights = self.gamma ** exponents
+        i_loss = (flow_preds - flow_gt[None]).abs()
+        per_iter = (valid[None] * i_loss).mean(dim=(1, 2, 3, 4))
+        return torch.sum(weights * per_iter)
 
 
 class RAFT(BaseModel):
@@ -44,7 +70,8 @@ class RAFT(BaseModel):
                  alternate_corr: bool = False,
                  corr_dtype: Optional[str] = None,
                  mixed_precision: bool = False, **kwargs):
-        super().__init__(output_stride=8, **kwargs)
+        super().__init__(output_stride=8,
+                         loss_fn=SequenceLoss(gamma, max_flow), **kwargs)
         if corr_dtype not in _DTYPES:
             raise ValueError(f"corr_dtype must be one of {list(_DTYPES)}")
         self.corr_levels = corr_levels
@@ -77,18 +104,33 @@ class RAFT(BaseModel):
                                              self.corr_radius,
                                              hidden_dim=self.hidden_dim)
 
-    @torch.no_grad()
-    def forward(self, inputs: Dict[str, torch.Tensor],
+    def forward(self, inputs: Dict[str, Any],
                 training: bool = False) -> Dict[str, torch.Tensor]:
-        """Eval forward: ``flows`` (B, 1, 2, H, W) and ``flow_small``
-        (B, 2, H/8, W/8)."""
-        if training or self.training:
-            raise NotImplementedError(
-                "only the eval forward is ported; training (flow_preds, "
-                "SequenceLoss, backward) is queued in ROADMAP.md")
-        if inputs.get("prev_preds") is not None:
-            raise NotImplementedError(
-                "the warm start (prev_preds) is queued in ROADMAP.md")
+        """Eval: ``flows`` (B, 1, 2, H, W) and ``flow_small`` (B, 2, H/8,
+        W/8), with no autograd graph.  ``inputs["prev_preds"]["flow_small"]``
+        of the previous pair, where given, warm-starts the coords by its
+        forward projection (``ops.forward_interpolate``).
+
+        Training (``training=True``): ``flow_preds`` (iters, B, 2, H, W),
+        every iteration's upsampled flow, and ``flows``, the last one as
+        (B, 1, 2, H, W), differentiable with respect to the weights.  The
+        coords are detached at the start of every iteration, as the JAX
+        package stops their gradient.  The mode follows ``training``, not
+        ``self.training``: BatchNorm uses batch statistics and updates its
+        running statistics exactly when ``training`` is true, as in the
+        JAX package.  A model built with ``mixed_precision`` stores bf16
+        weights and refuses to train."""
+        if training and self.mixed_precision:
+            raise ValueError(
+                "this model stores bf16 weights (mixed_precision=True), where "
+                "the JAX package keeps fp32 weights and trains in fp32 "
+                "(ROADMAP.md, section 3); build it without mixed_precision "
+                "to train it")
+        with torch.set_grad_enabled(training), train_mode(self, training):
+            return self._forward(inputs, training)
+
+    def _forward(self, inputs: Dict[str, Any],
+                 training: bool) -> Dict[str, torch.Tensor]:
         images, image_resizer = self.preprocess_images(
             inputs["images"], bgr_add=-0.5, bgr_mult=2.0, bgr_to_rgb=True,
             resize_mode="pad", pad_mode="replicate", pad_two_side=True)
@@ -116,11 +158,16 @@ class RAFT(BaseModel):
         coords0 = coords_grid(b, h, w, dtype=torch.float32,
                               device=fmap1.device)
         coords1 = coords0
+        prev = inputs.get("prev_preds")
+        if prev is not None and prev.get("flow_small") is not None:
+            coords1 = coords1 + forward_interpolate(prev["flow_small"])
         has_mask = isinstance(self.update_block, BasicUpdateBlock)
         mask = (torch.zeros((b, 64 * 9, h, w), dtype=fmap1.dtype,
                             device=fmap1.device) if has_mask else None)
 
+        flows_lr, masks = [], []
         for _ in range(self.iters):
+            coords1 = coords1.detach()
             corr = corr_lookup(coords1)
             flow = coords1 - coords0
             # the update block runs in the net dtype, coords stay fp32, and
@@ -129,8 +176,25 @@ class RAFT(BaseModel):
             net, up_mask, delta_flow = self.update_block(
                 net, inp, corr, flow.to(net.dtype))
             coords1 = coords1 + delta_flow
+            # SmallUpdateBlock gives no mask: the last one carries over
             if up_mask is not None:
                 mask = up_mask
+            if training:
+                flows_lr.append(coords1 - coords0)
+                masks.append(mask)
+
+        if training:
+            # all iterations upsampled in one batched call, (iters*B, 2, h, w)
+            flow_lr = torch.stack(flows_lr).flatten(0, 1)
+            if has_mask:
+                flow_ups = convex_upsample(flow_lr,
+                                           torch.stack(masks).flatten(0, 1))
+            else:
+                flow_ups = upflow(flow_lr, 8)
+            flow_ups = self.postprocess_predictions(
+                flow_ups.unflatten(0, (len(flows_lr), b)), image_resizer,
+                is_flow=True)
+            return {"flows": flow_ups[-1][:, None], "flow_preds": flow_ups}
 
         flow_small = coords1 - coords0
         if has_mask:

@@ -29,7 +29,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d``.  In eval mode it folds the running statistics
     into one scale and shift in float32 and applies them in the input's
     dtype, as the JAX package does, so bfloat16 inputs work with the
-    float32 running statistics that mixed precision keeps."""
+    float32 running statistics that mixed precision keeps.
+
+    In training mode it is ``nn.BatchNorm2d``'s: batch statistics, and
+    ``running_mean``/``running_var`` updated with momentum 0.1 and the
+    unbiased variance, as the JAX package's ``BatchNorm2d`` with
+    ``training=True``.  A model's forward sets the mode from its
+    ``training`` argument (``nn.train_mode``), so the statistics move
+    exactly when the JAX package's do."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training or not self.track_running_stats:

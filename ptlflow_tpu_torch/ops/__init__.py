@@ -1,8 +1,10 @@
 """Tensor ops of the PyTorch port, NCHW."""
 
 from .correlation import (build_corr_pyramid, coords_grid,  # noqa: F401
-                          corr_pyramid_lookup, corr_pyramid_lookup_plain,
-                          make_corr_lookup)
+                          corr_pyramid_lookup,
+                          corr_pyramid_lookup_backward_plain,
+                          corr_pyramid_lookup_plain, make_corr_lookup)
 from .grid_sample import interpolate  # noqa: F401
 from .resize import InputPadder, InputScaler  # noqa: F401
 from .upsample import convex_upsample, upflow  # noqa: F401
+from .warp import forward_interpolate  # noqa: F401

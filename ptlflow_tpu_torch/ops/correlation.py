@@ -11,13 +11,20 @@ a function of the coords: the hand-written CUDA kernel
 (``csrc/corr_lookup.cu``) for a pyramid on the card, the plain PyTorch
 version :func:`corr_pyramid_lookup_plain` for one on the CPU.
 :func:`corr_pyramid_lookup` is the same as a one-shot call.
+
+The lookup is differentiable with respect to the pyramid, never the coords,
+as RAFT trains it (the JAX package stops the coords' gradient).  On the
+card the gradient is a second hand-written kernel
+(``csrc/corr_lookup_backward.cu``) inside a ``torch.autograd.Function``; on
+the CPU autograd differentiates the plain version,
+:func:`corr_pyramid_lookup_backward_plain` is the kernel's plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -98,6 +105,14 @@ def _check_coords(coords: torch.Tensor, q: int,
                          f"{coords.shape[3]} queries, the levels Q={q}")
 
 
+def _check_coords_grad(coords: torch.Tensor) -> None:
+    if coords.requires_grad and torch.is_grad_enabled():
+        raise ValueError(
+            "the correlation lookup is differentiable with respect to the "
+            "pyramid only; detach the coords (RAFT stops their gradient, as "
+            "the JAX package does)")
+
+
 def make_corr_lookup(pyramid: Sequence[torch.Tensor], radius: int
                      ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Prepare the lookup of ``pyramid`` once; returns ``lookup(coords)``.
@@ -105,17 +120,24 @@ def make_corr_lookup(pyramid: Sequence[torch.Tensor], radius: int
     For a pyramid on the card the levels are checked and made contiguous
     and the kernel's pointer and shape arrays are built here, so each call
     only checks the coords, allocates the output and launches
-    ``csrc/corr_lookup.cu``.  For a pyramid on the CPU each call is
-    :func:`corr_pyramid_lookup_plain`.  Coords on another device than the
-    pyramid raise: neither path stands in for the other.
+    ``csrc/corr_lookup.cu``; where autograd needs the pyramid's gradient,
+    the call goes through a ``torch.autograd.Function`` whose backward
+    launches ``csrc/corr_lookup_backward.cu``.  For a pyramid on the CPU
+    each call is :func:`corr_pyramid_lookup_plain`, which autograd
+    differentiates.  Coords on another device than the pyramid raise:
+    neither path stands in for the other.  On either device, coords that
+    require a gradient raise while grad mode is on: the lookup gives no
+    gradient for them.
     """
     _check_pyramid(pyramid, radius)
     dev = pyramid[0].device
     if dev.type == "cuda":
-        return _kernel_lookup(pyramid, radius)
+        return _KernelLookup(pyramid, radius)
     if dev.type == "cpu":
-        return lambda coords: corr_pyramid_lookup_plain(pyramid, coords,
-                                                        radius)
+        def lookup(coords: torch.Tensor) -> torch.Tensor:
+            _check_coords_grad(coords)
+            return corr_pyramid_lookup_plain(pyramid, coords, radius)
+        return lookup
     raise ValueError(f"no lookup for device {dev}")
 
 
@@ -179,46 +201,158 @@ def corr_pyramid_lookup_plain(pyramid: Sequence[torch.Tensor],
     return out.to(pyramid[0].dtype)
 
 
-def _kernel_lookup(pyramid: Sequence[torch.Tensor], radius: int,
-                   lib: Optional[ctypes.CDLL] = None
-                   ) -> Callable[[torch.Tensor], torch.Tensor]:
+def _check_backward(grad_out: torch.Tensor, coords: torch.Tensor,
+                    shapes: Sequence[Tuple[int, int]], radius: int) -> None:
+    if not 0 <= radius <= MAX_RADIUS:
+        raise ValueError(f"radius must be in [0, {MAX_RADIUS}], got {radius}")
+    if not 1 <= len(shapes) <= MAX_LEVELS:
+        raise ValueError(f"1 to {MAX_LEVELS} levels, got {len(shapes)}")
+    if coords.dim() != 4 or coords.shape[1] != 2:
+        raise ValueError(f"coords must be (B, 2, H1, W1), got "
+                         f"{tuple(coords.shape)}")
+    b, _, h1, w1 = coords.shape
+    want = (b, len(shapes) * (2 * radius + 1) ** 2, h1, w1)
+    if tuple(grad_out.shape) != want:
+        raise ValueError(f"grad_out must be {want}, got "
+                         f"{tuple(grad_out.shape)}")
+    if grad_out.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("grad_out must be float32 or bfloat16")
+    if coords.dtype != torch.float32:
+        raise TypeError(f"coords must be float32, got {coords.dtype}")
+    if grad_out.device != coords.device:
+        raise ValueError("grad_out and coords must be on one device")
+
+
+def corr_pyramid_lookup_backward_plain(grad_out: torch.Tensor,
+                                       coords: torch.Tensor,
+                                       shapes: Sequence[Tuple[int, int]],
+                                       radius: int) -> List[torch.Tensor]:
+    """Plain PyTorch version of the backward kernel: the gradient of the
+    lookup with respect to each level, given the output's gradient
+    ``grad_out`` (B, L*(2r+1)^2, H1, W1) in the pyramid's dtype, the coords
+    and the levels' (H2, W2) ``shapes``.  Returns one dense (Q, H2, W2)
+    gradient per level in grad_out's dtype: the transpose of
+    :func:`corr_pyramid_lookup_plain`'s arithmetic, x-lerp then y-lerp
+    backwards in float32, scattered into a zero map per query at the
+    in-range cells of its (2r+2)^2 patch.  An empty level gets an empty
+    gradient.  Used by the tests and to check the kernel, never by the
+    model."""
+    _check_backward(grad_out, coords, shapes, radius)
+    b, _, h1, w1 = coords.shape
+    q = b * h1 * w1
+    n = 2 * radius + 1
+    p = n + 1
+    dev = coords.device
+    cxy = coords.permute(0, 2, 3, 1).reshape(q, 2)
+    # [q, level, a (x offset), b (y offset)]
+    g = grad_out.float().permute(0, 2, 3, 1).reshape(q, len(shapes), n, n)
+    offs = torch.arange(p, device=dev) - radius
+    grads = []
+    for i, (h2, w2) in enumerate(shapes):
+        out = torch.zeros((q, h2 * w2), dtype=torch.float32, device=dev)
+        if h2 > 0 and w2 > 0:
+            c = cxy / (2 ** i)
+            c0 = torch.floor(c)
+            fx, fy = (c - c0).unbind(1)
+            x0, y0 = c0.clamp(-2 ** 20, 2 ** 20).long().unbind(1)
+            fx = fx[:, None, None]
+            fy = fy[:, None, None]
+            gv = g[:, i].transpose(1, 2)  # (Q, n_b, n_a): [q, y, x]
+            # val = (1 - fx) * t[:, :, :n] + fx * t[:, :, 1:]
+            gt = F.pad((1 - fx) * gv, (0, 1)) + F.pad(fx * gv, (1, 0))
+            # t = (1 - fy) * patch[:, :n, :] + fy * patch[:, 1:, :]
+            gp = (F.pad((1 - fy) * gt, (0, 0, 0, 1))
+                  + F.pad(fy * gt, (0, 0, 1, 0)))  # (Q, p, p)
+            ys = y0[:, None] + offs
+            xs = x0[:, None] + offs
+            valid = (((ys >= 0) & (ys < h2))[:, :, None]
+                     & ((xs >= 0) & (xs < w2))[:, None, :])
+            idx = (ys.clamp(0, h2 - 1)[:, :, None] * w2
+                   + xs.clamp(0, w2 - 1)[:, None, :])
+            # out-of-map cells are clamped onto the map and add zeros
+            out.scatter_add_(1, idx.reshape(q, p * p),
+                             (gp * valid).reshape(q, p * p))
+        grads.append(out.reshape(q, h2, w2).to(grad_out.dtype))
+    return grads
+
+
+class _LookupFunction(torch.autograd.Function):
+    """The prepared lookup on the card as an autograd node: the forward
+    launches ``csrc/corr_lookup.cu``, the backward
+    ``csrc/corr_lookup_backward.cu``, one gradient per level.  It saves the
+    coords and the levels' shapes, nothing of the pyramid, and gives the
+    coords no gradient (the caller refuses coords that need one)."""
+
+    @staticmethod
+    def forward(ctx, coords, prepared, *levels):
+        ctx.shapes = prepared.shapes
+        ctx.radius = prepared.radius
+        ctx.save_for_backward(coords)
+        return prepared.launch(coords)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        (coords,) = ctx.saved_tensors
+        grads = corr_lookup_backward_kernel(grad_out, coords, ctx.shapes,
+                                            ctx.radius)
+        return (None, None, *grads)
+
+
+class _KernelLookup:
     """The prepared launch of ``csrc/corr_lookup.cu`` (or of ``lib``, a
     library with the same C interface) for a checked pyramid on the card.
     Each call launches on the current stream, raises on a refused launch
-    and counts it in ``corr_lookup_kernel.launches``."""
-    lib = _corr_lookup_lib(lib)
-    levels = [lvl.contiguous() for lvl in pyramid]
-    nl, q = len(levels), levels[0].shape[0]
-    dt, dev = levels[0].dtype, levels[0].device
-    # An empty level's data_ptr() may be 0: the kernel never reads it, as
-    # no window row or column lies inside a map of 0 rows or columns.
-    ptrs = (ctypes.c_void_p * nl)(*[lvl.data_ptr() for lvl in levels])
-    hs = (ctypes.c_int * nl)(*[lvl.shape[1] for lvl in levels])
-    ws = (ctypes.c_int * nl)(*[lvl.shape[2] for lvl in levels])
-    channels = nl * (2 * radius + 1) ** 2
-    is_bf16 = int(dt == torch.bfloat16)
-    fn = lib.corr_lookup
+    and counts it in ``corr_lookup_kernel.launches``.  Where grad mode is on
+    and a level requires a gradient, the call goes through
+    :class:`_LookupFunction`."""
 
-    def lookup(coords: torch.Tensor) -> torch.Tensor:
-        _check_coords(coords, q, dev)
-        if torch.cuda.current_device() != dev.index:
-            with torch.cuda.device(dev):
-                return lookup(coords)
-        coords = coords.contiguous()
+    def __init__(self, pyramid: Sequence[torch.Tensor], radius: int,
+                 lib: Optional[ctypes.CDLL] = None):
+        self.lib = _corr_lookup_lib(lib)
+        # keeps the contiguous copies alive while the lookup is
+        self.levels = [lvl.contiguous() for lvl in pyramid]
+        nl = len(self.levels)
+        self.q = self.levels[0].shape[0]
+        self.dtype, self.device = self.levels[0].dtype, self.levels[0].device
+        self.radius = radius
+        self.shapes = [tuple(lvl.shape[1:]) for lvl in self.levels]
+        # An empty level's data_ptr() may be 0: the kernel never reads it,
+        # as no window row or column lies inside a map of 0 rows or columns.
+        self.ptrs = (ctypes.c_void_p * nl)(
+            *[lvl.data_ptr() for lvl in self.levels])
+        self.hs = (ctypes.c_int * nl)(*[h for h, _ in self.shapes])
+        self.ws = (ctypes.c_int * nl)(*[w for _, w in self.shapes])
+        self.channels = nl * (2 * radius + 1) ** 2
+
+    def __call__(self, coords: torch.Tensor) -> torch.Tensor:
+        _check_coords(coords, self.q, self.device)
+        _check_coords_grad(coords)
+        if torch.is_grad_enabled() and any(lvl.requires_grad
+                                           for lvl in self.levels):
+            return _LookupFunction.apply(coords, self, *self.levels)
+        return self.launch(coords)
+
+    def launch(self, coords: torch.Tensor) -> torch.Tensor:
+        if torch.cuda.current_device() != self.device.index:
+            with torch.cuda.device(self.device):
+                return self.launch(coords)
+        coords = coords.detach().contiguous()
         b, _, h1, w1 = coords.shape
-        out = torch.empty((b, channels, h1, w1), dtype=dt, device=dev)
-        if q == 0:
+        out = torch.empty((b, self.channels, h1, w1), dtype=self.dtype,
+                          device=self.device)
+        if self.q == 0:
             return out
-        err = fn(coords.data_ptr(), ptrs, hs, ws, nl, out.data_ptr(), b, h1,
-                 w1, radius, is_bf16, torch.cuda.current_stream().cuda_stream)
+        err = self.lib.corr_lookup(
+            coords.data_ptr(), self.ptrs, self.hs, self.ws, len(self.shapes),
+            out.data_ptr(), b, h1, w1, self.radius,
+            int(self.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"corr_lookup kernel launch failed: CUDA "
                                f"error {err}")
         corr_lookup_kernel.launches += 1
         return out
-
-    lookup.levels = levels  # keeps the contiguous copies alive
-    return lookup
 
 
 def corr_lookup_kernel(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
@@ -230,10 +364,54 @@ def corr_lookup_kernel(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
     _check_pyramid(pyramid, radius)
     if pyramid[0].device.type != "cuda":
         raise ValueError("corr_lookup_kernel takes CUDA tensors")
-    return _kernel_lookup(pyramid, radius)(coords)
+    return _KernelLookup(pyramid, radius)(coords)
 
 
 corr_lookup_kernel.launches = 0
+
+
+def corr_lookup_backward_kernel(grad_out: torch.Tensor, coords: torch.Tensor,
+                                shapes: Sequence[Tuple[int, int]],
+                                radius: int) -> List[torch.Tensor]:
+    """Launch ``csrc/corr_lookup_backward.cu`` once on the current stream;
+    returns the level gradients, every element written by the kernel.
+    Takes CUDA tensors only and raises on anything the kernel does not
+    take; ``corr_lookup_backward_kernel.launches`` counts every launch of
+    the kernel, those of the lookup's autograd backward included."""
+    _check_backward(grad_out, coords, shapes, radius)
+    dev = coords.device
+    if dev.type != "cuda":
+        raise ValueError("corr_lookup_backward_kernel takes CUDA tensors")
+    if torch.cuda.current_device() != dev.index:
+        with torch.cuda.device(dev):
+            return corr_lookup_backward_kernel(grad_out, coords, shapes,
+                                               radius)
+    lib = _corr_lookup_backward_lib()
+    grad_out = grad_out.contiguous()
+    coords = coords.detach().contiguous()
+    b, _, h1, w1 = coords.shape
+    q = b * h1 * w1
+    grads = [torch.empty((q, h, w), dtype=grad_out.dtype, device=dev)
+             for h, w in shapes]
+    if q == 0:
+        return grads
+    nl = len(shapes)
+    # an empty level's pointer may be 0; the kernel never writes it
+    ptrs = (ctypes.c_void_p * nl)(*[g.data_ptr() for g in grads])
+    hs = (ctypes.c_int * nl)(*[h for h, _ in shapes])
+    ws = (ctypes.c_int * nl)(*[w for _, w in shapes])
+    err = lib.corr_lookup_backward(
+        coords.data_ptr(), grad_out.data_ptr(), ptrs, hs, ws, nl, b, h1, w1,
+        radius, int(grad_out.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"corr_lookup_backward kernel launch failed: CUDA "
+                           f"error {err}")
+    corr_lookup_backward_kernel.launches += 1
+    return grads
+
+
+corr_lookup_backward_kernel.launches = 0
 
 
 def _corr_lookup_lib(lib: Optional[ctypes.CDLL] = None) -> ctypes.CDLL:
@@ -246,5 +424,18 @@ def _corr_lookup_lib(lib: Optional[ctypes.CDLL] = None) -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, ctypes.POINTER(vp), ctypes.POINTER(i),
                        ctypes.POINTER(i), i, vp, i, i, i, i, i, vp]
+        fn.restype = i
+    return lib
+
+
+def _corr_lookup_backward_lib() -> ctypes.CDLL:
+    """The library built from ``csrc/corr_lookup_backward.cu``, with the C
+    signature of ``corr_lookup_backward`` declared."""
+    lib = cuda_build.load("corr_lookup_backward")
+    fn = lib.corr_lookup_backward
+    if fn.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, ctypes.POINTER(vp), ctypes.POINTER(i),
+                       ctypes.POINTER(i), i, i, i, i, i, i, vp]
         fn.restype = i
     return lib

@@ -1,7 +1,8 @@
-"""The lookup kernel's wrapper and build, without JAX.
+"""The lookup kernels' wrappers and build, without JAX.
 
-The tests marked ``cuda`` hold the hand-written kernel against its plain
-PyTorch version and skip where there is no card.  This file imports
+The tests marked ``cuda`` hold the hand-written kernels (the lookup and its
+backward) against their plain PyTorch versions and skip where there is no
+card.  This file imports
 nothing of JAX, so on a machine without JAX it runs on its own:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
@@ -87,7 +88,7 @@ def test_plain_lookup_window_order():
 def test_build_needs_nvcc():
     """Where the toolkit is missing, building says so instead of failing
     later on a missing library."""
-    assert cuda_build.sources() == ["corr_lookup"]
+    assert cuda_build.sources() == ["corr_lookup", "corr_lookup_backward"]
     try:
         cuda_build._nvcc()
     except RuntimeError as e:
@@ -139,3 +140,77 @@ def test_lookup_kernel_matches_plain_on_card(radius, dtype):
         else:
             torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
                                        atol=1e-5, msg=label)
+
+
+def _shapes(pyr):
+    return [tuple(p.shape[1:]) for p in pyr]
+
+
+def test_lookup_backward_plain_is_the_transpose():
+    """The backward's plain version is the transpose of the plain lookup:
+    it matches autograd through it (fp32, 1e-5) and launches no kernel;
+    the kernel's wrapper refuses CPU tensors."""
+    pyr, coords = _inputs(31, 2, 4, 5, 9, 11, levels=4)
+    levels = [p.clone().requires_grad_() for p in pyr]
+    out = corr.corr_pyramid_lookup_plain(levels, coords, 3)
+    grad = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    want = torch.autograd.grad(out, levels, grad, allow_unused=True,
+                               materialize_grads=True)
+    before = corr.corr_lookup_backward_kernel.launches
+    got = corr.corr_pyramid_lookup_backward_plain(grad, coords, _shapes(pyr),
+                                                  3)
+    assert corr.corr_lookup_backward_kernel.launches == before
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError):
+        corr.corr_lookup_backward_kernel(grad, coords, _shapes(pyr), 3)
+    with pytest.raises(ValueError):  # grad_out of another radius
+        corr.corr_pyramid_lookup_backward_plain(grad, coords, _shapes(pyr), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", [0, 1, 3, 4, 8])
+def test_lookup_backward_kernel_matches_plain_on_card(radius, dtype):
+    """The backward kernel against its plain version, on the card: fp32 to
+    1e-5 of the largest gradient; bf16 compared in fp32 to one bf16
+    rounding (rtol 1e-2).  Two launches give the same bits, and autograd
+    through a prepared lookup launches the forward and backward kernels
+    once each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(radius)
+    for label, (pyr, coords) in _card_cases(radius):
+        pyr = [p.to("cuda", dtype) for p in pyr]
+        coords = coords.cuda()
+        n = len(pyr) * (2 * radius + 1) ** 2
+        b, _, h1, w1 = coords.shape
+        grad = torch.randn(b, n, h1, w1, generator=gen).to("cuda", dtype)
+        before = corr.corr_lookup_backward_kernel.launches
+        got = corr.corr_lookup_backward_kernel(grad, coords, _shapes(pyr),
+                                               radius)
+        again = corr.corr_lookup_backward_kernel(grad, coords, _shapes(pyr),
+                                                 radius)
+        torch.cuda.synchronize()
+        assert corr.corr_lookup_backward_kernel.launches == before + 2
+        want = corr.corr_pyramid_lookup_backward_plain(grad, coords,
+                                                       _shapes(pyr), radius)
+        for g, a, w in zip(got, again, want):
+            assert g.dtype == dtype and g.shape == w.shape, label
+            torch.testing.assert_close(a, g, rtol=0, atol=0)
+            if dtype == torch.float32:
+                wmax = w.abs().max().item() if w.numel() else 0.0
+                tol = 1e-5 * max(wmax, 1.0)
+                torch.testing.assert_close(g, w, rtol=0, atol=tol, msg=label)
+            else:
+                torch.testing.assert_close(g.float(), w.float(), rtol=1e-2,
+                                           atol=1e-5, msg=label)
+        levels = [p.detach().requires_grad_() for p in pyr]
+        fwd = corr.corr_lookup_kernel.launches
+        bwd = corr.corr_lookup_backward_kernel.launches
+        out = corr.make_corr_lookup(levels, radius)(coords)
+        auto = torch.autograd.grad(out, levels, grad)
+        assert corr.corr_lookup_kernel.launches == fwd + 1
+        assert corr.corr_lookup_backward_kernel.launches == bwd + 1
+        for g, a in zip(got, auto):
+            torch.testing.assert_close(a, g, rtol=0, atol=0)

@@ -23,7 +23,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 def test_imports_without_jax():
     """In a fresh interpreter: this test process already holds JAX."""
-    code = ("import sys, ptlflow_tpu_torch; "
+    code = ("import sys, ptlflow_tpu_torch, ptlflow_tpu_torch.parallel, "
+            "ptlflow_tpu_torch.ops.warp; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "bad = [m for m in sys.modules if m == 'ptlflow_tpu' "
             "or m.startswith('ptlflow_tpu.')]; "

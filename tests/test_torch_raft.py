@@ -321,13 +321,3 @@ def test_forward_prepares_the_lookup_once(monkeypatch):
     model({"images": torch.zeros(1, 2, 3, 32, 48)})
     assert built == [3] and len(calls) == 3
 
-
-def test_training_is_not_ported():
-    model = ptlflow_tpu_torch.get_model("raft_small", args={"iters": 1},
-                                        device="cpu")
-    images = torch.zeros(1, 2, 3, 32, 32)
-    with pytest.raises(NotImplementedError):
-        model({"images": images}, training=True)
-    model.train()
-    with pytest.raises(NotImplementedError):
-        model({"images": images})
