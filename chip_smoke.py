@@ -13,21 +13,25 @@ Phases, each of which must pass, else the script exits non-zero:
    main paths' shapes: the lookup, and the lookup's backward (which must
    also give the same bits twice);
 3. serve 3 frame pairs at 436x1024 through ``raft`` and ``raft_small``
-   (12 GRU iterations, seeded random weights) via IOAdapter -> model ->
-   unscale, counting the kernel launches of each run (the model prepares
-   the lookup once per forward and launches it once per iteration) and
-   checking that the eval forward builds no autograd graph; then serve two
-   consecutive pairs of one sequence through ``raft``, the second
-   warm-started from the first's ``flow_small``;
+   (12 GRU iterations), ``sea_raft_m`` (4 refinements), ``sea_raft_l``
+   (12) and ``gma`` (12), with seeded random weights, via IOAdapter ->
+   model -> unscale, counting the kernel launches of each run (the model
+   prepares the lookup once per forward and launches it once per
+   iteration) and checking that the eval forward builds no autograd graph;
+   then serve two consecutive pairs of one sequence through ``raft`` and
+   through ``gma``, the second warm-started from the first's
+   ``flow_small``;
 4. run the same weights and input on the card and on the CPU (plain
-   versions) and compare the flows; then one train step of ``raft`` at
-   128x160, 2 iterations, on both, and compare the loss, every
-   parameter's gradient and the BatchNorm statistics;
+   versions) and compare the flows of ``raft``, ``raft_small``,
+   ``sea_raft_m`` and ``gma``; then one train step of ``raft`` and one of
+   ``sea_raft_s`` at 128x160, 2 iterations, on both, and compare the loss,
+   every parameter's gradient and the BatchNorm statistics;
 5. time the lookup kernel (CUDA events and the profiler's device time, L2
    cold, fp32 and bf16), its plain version and the PyTorch yardstick at
    the eval path's shapes, the host time of a one-shot and of a prepared
-   lookup call, the RAFT forward in fp32 and mixed precision, and profile
-   one forward;
+   lookup call, the forward of each served model in fp32 and of ``raft``
+   and ``sea_raft_m`` in mixed precision, and profile one forward of
+   each;
 6. train ``raft`` at full width as ``raft-train1-chairs.yaml`` does (368x496
    crops, batch 10, 12 iterations, AdamW + OneCycle, clip 1.0) for 5 steps
    on seeded synthetic batches, counting both kernels' launches per step;
@@ -61,6 +65,14 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 H, W = 436, 1024  # Sintel frames: the main path's size
 ITERS = 12
+# (model, iterations) served at H x W: RAFT's and GMA's 12 GRU iterations,
+# SEA-RAFT's own depths (sea_raft_m 4 refinements, sea_raft_l 12)
+SERVE = (("raft", ITERS), ("raft_small", ITERS), ("sea_raft_m", 4),
+         ("sea_raft_l", 12), ("gma", ITERS))
+# Largest mean |flow| (px) a served SEA-RAFT may give on its pairs, which
+# move 2-4 px: a trained model's size, so that its lookups read the windows
+# around the true motion
+SERVED_FLOW_PX = 8.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12   # H100 SXM fp32 outside the tensor cores
 # Plain-versus-kernel tolerances: fp32 sums of the same terms in another
@@ -299,6 +311,200 @@ def damp_flow_head(model, factor: float = 0.03) -> None:
         conv.bias.mul_(factor)
 
 
+def set_layer_scales(torch, model, seed: int) -> None:
+    """Every layer scale ``gamma`` (ConvNeXt's, 1e-6 at init, and GMA's
+    aggregator's, 0 at init: the blocks they scale add next to nothing
+    there) to seeded values in [0.1, 1], so that a check sees those
+    blocks."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] == "gamma":
+                p.copy_(0.1 + 0.9 * torch.rand(p.shape, generator=gen))
+
+
+def randomise_norms(torch, model, seed: int) -> None:
+    """Seeded BatchNorm statistics and affine weights, as the CPU tests
+    give them, so that BatchNorm is not the identity."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                c = mod.num_features
+                mod.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
+                mod.running_var.copy_(1 + 0.5 * torch.rand(c, generator=gen))
+                mod.weight.copy_(1 + 0.1 * torch.randn(c, generator=gen))
+                mod.bias.copy_(0.1 * torch.randn(c, generator=gen))
+
+
+def calibrate_norms(torch, model, images) -> None:
+    """Every BatchNorm's running statistics to those of ``images`` (one
+    training forward at momentum 1), as training leaves them for its data:
+    random statistics do not normalise ResNet34's activations, and
+    SEA-RAFT's flows then reach ~1000 px at 64x96."""
+    norms = [m for m in model.modules()
+             if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in norms:
+        m.momentum = 1.0
+    with torch.no_grad():
+        model({"images": images}, training=True)
+    for m in norms:
+        m.momentum = 0.1
+
+
+def parity_weights(torch, name: str, model, images) -> None:
+    """Random weights conditioned to steps of trained size, so that two
+    correct runs agree (random RAFT-family weights are chaotic: fp32
+    rounding grows ~5x per iteration).  RAFT: the flow head damped by 0.03.
+    GMA: that, seeded norms and layer scales.  SEA-RAFT: seeded layer
+    scales, the flow head's flow channels damped by 0.01 and its info
+    channels by 0.1, each ConvNeXt block's ``final`` conv by 0.1 (random
+    ones multiply the hidden state by ~2.5 a block, and nothing bounds it),
+    and the norms calibrated on ``images``."""
+    if name.startswith("sea_raft"):
+        set_layer_scales(torch, model, 1)
+        with torch.no_grad():
+            head = model.flow_head[2]
+            head.weight[:2].mul_(0.01)
+            head.bias[:2].mul_(0.01)
+            head.weight[2:].mul_(0.1)
+            head.bias[2:].mul_(0.1)
+            for blk in model.update_block.refine:
+                blk.final.weight.mul_(0.1)
+        calibrate_norms(torch, model, images)
+        return
+    damp_flow_head(model)
+    if name == "gma":
+        set_layer_scales(torch, model, 1)
+        randomise_norms(torch, model, 1)
+
+
+def damp_to_served_size(torch, name: str, model, images) -> None:
+    """Scale the flow head's two flow channels until ``model``'s mean
+    |flow| on ``images`` is at most SERVED_FLOW_PX: conditioned by
+    ``parity_weights`` alone, SEA-RAFT still gives 60-250 px at 1024x436.
+    Each round aims at half the limit; the flow is near linear in the
+    scale, so one or two rounds do."""
+    head = model.flow_head[2]
+    mags = []
+    for _ in range(5):
+        with torch.no_grad():
+            flows = model({"images": images})["flows"]
+            mag = flows.norm(dim=2).mean().item()
+            mags.append(f"{mag:.3f}")
+            if mag <= SERVED_FLOW_PX:
+                log(f"[served weights] {name}: mean |flow| on the "
+                    f"calibration pair {' -> '.join(mags)} px")
+                return
+            scale = 0.5 * SERVED_FLOW_PX / mag
+            head.weight[:2].mul_(scale)
+            head.bias[:2].mul_(scale)
+    raise AssertionError(f"{name}: mean |flow| {mag} px after 5 rounds")
+
+
+def served_model(torch, name: str, args: dict, images):
+    """``get_model(name, args=args)`` on the card, its seeded random
+    weights used as they are, except SEA-RAFT's, which ``parity_weights``
+    conditions on ``images`` and ``damp_to_served_size`` damps to flows of
+    trained size: the init's weights step ~4x further each refinement (mean
+    flows of 8e7 px from sea_raft_m, 6e12 px from sea_raft_l at 1024x436),
+    so that its lookups read no map at all."""
+    import ptlflow_tpu_torch
+
+    model = ptlflow_tpu_torch.get_model(name, args=args)
+    if name.startswith("sea_raft"):
+        # a mixed-precision model refuses the training forward that
+        # calibrates the norms: condition fp32 weights and load them
+        fp32 = ptlflow_tpu_torch.get_model(
+            name, args=dict(args, mixed_precision=False))
+        parity_weights(torch, name, fp32, images)
+        damp_to_served_size(torch, name, fp32, images)
+        model.load_state_dict(fp32.state_dict())
+    return model
+
+
+def train_step_card_vs_cpu(torch, name: str, dev) -> dict:
+    """One train step of ``name`` at 128x160, batch 2, 2 iterations, on the
+    CPU and on the card from the same weights (``parity_weights``), and on
+    the CPU again with the images one fp32 rounding off: the loss within
+    RTOL_LOSS, the BatchNorm statistics within ATOL_BN and the whole
+    gradient within GRAD_RTOL, by its largest element and by its norm; the
+    per-tensor figures printed beside those of the nudged CPU run.  The card
+    step must launch each kernel twice."""
+    import ptlflow_tpu_torch
+    from ptlflow_tpu_torch.nn import split_trainable
+    from ptlflow_tpu_torch.ops import correlation as corr
+    from ptlflow_tpu_torch.parallel import train as ttrain
+
+    cpu_model = ptlflow_tpu_torch.get_model(name, args={"iters": 2},
+                                            device="cpu")
+    batch = train_batch(torch, 5, 2, 128, 160, "cpu")
+    parity_weights(torch, name, cpu_model, batch["images"])
+    gpu_model = ptlflow_tpu_torch.get_model(name, args={"iters": 2})
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    # the CPU again, on images one fp32 rounding off (x (1 + 2^-23))
+    nudged = dict(batch, images=batch["images"] * (1 + 2.0 ** -23))
+    step_out = {}
+    for label, model, where, b in (("cpu", cpu_model, "cpu", batch),
+                                   ("card", gpu_model, dev, batch),
+                                   ("cpu nudged", cpu_model, "cpu", nudged)):
+        params, _ = split_trainable(model)
+        corr.corr_lookup_kernel.launches = 0
+        corr.corr_lookup_backward_kernel.launches = 0
+        loss, grads = ttrain.loss_and_grads(
+            model, params, {k: v.to(where) for k, v in b.items()})
+        step_out[label] = (loss.item(), list(params), [g.cpu() for g in grads],
+                           {k: v.cpu() for k, v in bn_stats(model).items()},
+                           ttrain.global_norm(grads).item())
+        if label == "card":
+            card_launches = (corr.corr_lookup_kernel.launches,
+                             corr.corr_lookup_backward_kernel.launches)
+            if card_launches != (2, 2):
+                raise AssertionError(f"{name} card train step: launches "
+                                     f"{card_launches}, expected 2 of each "
+                                     f"kernel")
+    (cl, names, cg, cs, cn), (gl, _, gg, gs, gn) = (step_out["cpu"],
+                                                    step_out["card"])
+    gmax = max(g.abs().max().item() for g in cg)
+    flat = torch.cat([g.flatten() for g in cg])
+    dflat = torch.cat([(a - b).flatten() for a, b in zip(gg, cg)])
+    glob_max = dflat.abs().max().item() / gmax
+    glob_norm = (dflat.norm() / flat.norm()).item()
+
+    def per_tensor(grads):
+        return sorted(((a - b).abs().max().item()
+                       / max(b.abs().max().item(), GRAD_FLOOR / GRAD_RTOL
+                             * gmax), n) for n, a, b in zip(names, grads, cg))
+
+    bn_err = max((gs[k] - cs[k]).abs().max().item() for k in cs)
+    for label, grads in (("card", gg), ("CPU, input one rounding off",
+                                        step_out["cpu nudged"][2])):
+        ratios = per_tensor(grads)
+        log(f"[4 card vs cpu] {name} train step, {label} against the CPU: "
+            f"worst per-tensor max |dg| / max(max |g|, "
+            f"{GRAD_FLOOR / GRAD_RTOL:g} max |g| of the model): "
+            + ", ".join(f"{n} {r:.2e}" for r, n in ratios[-4:])
+            + f" ({sum(r > GRAD_RTOL for r, _ in ratios)} of {len(ratios)} "
+            f"over {GRAD_RTOL})")
+    log(f"[4 card vs cpu] {name} train step, 2x128x160, 2 iters: loss "
+        f"{gl:.7f} on the card, {cl:.7f} on the CPU; grad norm {gn:.6f} / "
+        f"{cn:.6f}; the whole gradient: max |dg| / max |g| {glob_max:.2e}, "
+        f"|dg| / |g| {glob_norm:.2e} (tolerance {GRAD_RTOL}); BN statistics "
+        f"max |d| {bn_err:.2e} (tolerance {ATOL_BN})")
+    if not abs(gl - cl) <= RTOL_LOSS * abs(cl):
+        raise AssertionError(f"{name} card train step: loss {gl} against "
+                             f"{cl}")
+    if not bn_err <= ATOL_BN:
+        raise AssertionError(f"{name} card train step: BN statistics "
+                             f"{bn_err}")
+    if not (glob_max <= GRAD_RTOL and glob_norm <= GRAD_RTOL):
+        raise AssertionError(f"{name} card train step: gradient {glob_max}, "
+                             f"{glob_norm}")
+    return {"loss": [gl, cl], "grad_max_rel": glob_max,
+            "grad_norm_rel": glob_norm, "bn_err": bn_err,
+            "launches": card_launches}
+
+
 def patch_traffic(torch, coords, shapes, radius: int, elt: int):
     """Elements of the (2r+2)^2 patches that fall inside each level for
     these coords (what the lookup must read), and the 32-byte memory
@@ -487,8 +693,10 @@ def main(argv=None) -> int:
     pairs = [smooth_pair(seed, H, W, shift=(2 + seed, 1 + seed))
              for seed in range(3)]
     launches = {}
-    for name in ("raft", "raft_small"):
-        model = ptlflow_tpu_torch.get_model(name, args={"iters": ITERS})
+    for name, iters in SERVE:
+        model = served_model(torch, name, {"iters": iters},
+                             IOAdapter(device=dev).prepare_inputs(
+                                 list(pairs[0]))["images"])
         adapter = IOAdapter(model)
         corr.corr_lookup_kernel.launches = 0
         for k, pair in enumerate(pairs):
@@ -505,129 +713,73 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{name}: the eval forward built an "
                                      f"autograd graph")
             n = corr.corr_lookup_kernel.launches - before
-            if n != ITERS:
+            if n != iters:
                 raise AssertionError(f"{name}: {n} lookup launches in one "
-                                     f"forward, expected {ITERS}")
+                                     f"forward, expected {iters}")
             mean = flows.mean(dim=(0, 1, 3, 4)).tolist()
             log(f"[3 serve] {name} request {k}: flows {tuple(flows.shape)} "
                 f"finite, no grad_fn, mean flow ({mean[0]:.3f}, "
                 f"{mean[1]:.3f}) px, {n} lookup launches")
         launches[name] = corr.corr_lookup_kernel.launches
-        if launches[name] != ITERS * len(pairs):
+        if launches[name] != iters * len(pairs):
             raise AssertionError(f"{name}: {launches[name]} launches")
         del model
 
     # warm start: frames 0-1 of a sequence, then frames 1-2 from there
     frames = smooth_frames(21, H, W, 3, shift=(3, 2))
-    model = ptlflow_tpu_torch.get_model("raft", args={"iters": ITERS})
-    damp_flow_head(model)  # steps of trained size, as in phase 4
-    adapter = IOAdapter(model)
-    x1 = adapter.prepare_inputs(frames[1:])
-    corr.corr_lookup_kernel.launches = 0
-    first = model(adapter.prepare_inputs(frames[:2]))
-    warm = model(dict(x1, prev_preds={"flow_small": first["flow_small"]}))
-    torch.cuda.synchronize()
-    launches["raft warm start"] = corr.corr_lookup_kernel.launches
-    cold = model(x1)
-    if launches["raft warm start"] != 2 * ITERS:
-        raise AssertionError(f"warm start: {launches['raft warm start']} "
-                             f"lookup launches for two requests")
-    for label, out in (("first", first), ("warm", warm)):
-        if not torch.isfinite(out["flows"]).all():
-            raise AssertionError(f"warm start: non-finite {label} flows")
-        if out["flows"].grad_fn is not None:
-            raise AssertionError("warm start: an autograd graph")
-    mean = warm["flows"].mean(dim=(0, 1, 3, 4)).tolist()
-    moved = (warm["flows"] - cold["flows"]).abs().mean().item()
-    log(f"[3 warm start] raft, two consecutive pairs at {W}x{H}: "
-        f"{launches['raft warm start']} lookup launches, warm-started flows "
-        f"finite, mean ({mean[0]:.3f}, {mean[1]:.3f}) px (true motion 3, 2), "
-        f"mean |warm - cold| {moved:.4f} px")
-    del model, first, warm, cold
+    for name in ("raft", "gma"):
+        model = ptlflow_tpu_torch.get_model(name, args={"iters": ITERS})
+        damp_flow_head(model)  # steps of trained size, as in phase 4
+        adapter = IOAdapter(model)
+        x1 = adapter.prepare_inputs(frames[1:])
+        corr.corr_lookup_kernel.launches = 0
+        first = model(adapter.prepare_inputs(frames[:2]))
+        warm = model(dict(x1, prev_preds={"flow_small": first["flow_small"]}))
+        torch.cuda.synchronize()
+        key = f"{name} warm start"
+        launches[key] = corr.corr_lookup_kernel.launches
+        cold = model(x1)
+        if launches[key] != 2 * ITERS:
+            raise AssertionError(f"{key}: {launches[key]} lookup launches "
+                                 f"for two requests")
+        for label, out in (("first", first), ("warm", warm)):
+            if not torch.isfinite(out["flows"]).all():
+                raise AssertionError(f"{key}: non-finite {label} flows")
+            if out["flows"].grad_fn is not None:
+                raise AssertionError(f"{key}: an autograd graph")
+        mean = warm["flows"].mean(dim=(0, 1, 3, 4)).tolist()
+        moved = (warm["flows"] - cold["flows"]).abs().mean().item()
+        log(f"[3 warm start] {name}, two consecutive pairs at {W}x{H}: "
+            f"{launches[key]} lookup launches, warm-started flows finite, "
+            f"mean ({mean[0]:.3f}, {mean[1]:.3f}) px (true motion 3, 2), "
+            f"mean |warm - cold| {moved:.4f} px")
+        del model, first, warm, cold
 
     # ---------------------------------------------------------------- 4
-    for name in ("raft", "raft_small"):
-        cpu_model = ptlflow_tpu_torch.get_model(name, args={"iters": ITERS},
+    for name in ("raft", "raft_small", "sea_raft_m", "gma"):
+        iters = dict(SERVE)[name]
+        cpu_model = ptlflow_tpu_torch.get_model(name, args={"iters": iters},
                                                 device="cpu")
-        damp_flow_head(cpu_model)
-        gpu_model = ptlflow_tpu_torch.get_model(name, args={"iters": ITERS})
-        gpu_model.load_state_dict(cpu_model.state_dict())
         pair = smooth_pair(7, 256, 320, shift=(3, 2))
         x = IOAdapter(cpu_model).prepare_inputs(list(pair))
+        parity_weights(torch, name, cpu_model, x["images"])
+        gpu_model = ptlflow_tpu_torch.get_model(name, args={"iters": iters})
+        gpu_model.load_state_dict(cpu_model.state_dict())
         want = cpu_model(x)["flows"]
         got = gpu_model({"images": x["images"].to(dev)})["flows"].cpu()
         diff = (got - want).abs().max().item()
-        log(f"[4 card vs cpu] {name} 256x320, {ITERS} iters: max |dflow| "
+        log(f"[4 card vs cpu] {name} 256x320, {iters} iters: max |dflow| "
             f"{diff:.3e} px (flow up to {want.abs().max().item():.2f} px, "
             f"tolerance {ATOL_CARD_CPU_PX} px)")
         if not diff <= ATOL_CARD_CPU_PX:
             raise AssertionError(f"{name}: card and CPU differ by {diff} px")
+    del cpu_model, gpu_model
 
     # one train step's gradients, card against CPU
-    from ptlflow_tpu_torch.nn import split_trainable
     from ptlflow_tpu_torch.parallel import train as ttrain
 
-    cpu_model = ptlflow_tpu_torch.get_model("raft", args={"iters": 2},
-                                            device="cpu")
-    damp_flow_head(cpu_model)
-    gpu_model = ptlflow_tpu_torch.get_model("raft", args={"iters": 2})
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    batch = train_batch(torch, 5, 2, 128, 160, "cpu")
-    # the CPU again, on images one fp32 rounding off (x (1 + 2^-23))
-    nudged = dict(batch, images=batch["images"] * (1 + 2.0 ** -23))
-    step_out = {}
-    for label, model, where, b in (("cpu", cpu_model, "cpu", batch),
-                                   ("card", gpu_model, dev, batch),
-                                   ("cpu nudged", cpu_model, "cpu", nudged)):
-        params, _ = split_trainable(model)
-        corr.corr_lookup_kernel.launches = 0
-        corr.corr_lookup_backward_kernel.launches = 0
-        loss, grads = ttrain.loss_and_grads(
-            model, params, {k: v.to(where) for k, v in b.items()})
-        step_out[label] = (loss.item(), list(params), [g.cpu() for g in grads],
-                           {k: v.cpu() for k, v in bn_stats(model).items()},
-                           ttrain.global_norm(grads).item())
-        if label == "card" and (
-                corr.corr_lookup_kernel.launches,
-                corr.corr_lookup_backward_kernel.launches) != (2, 2):
-            raise AssertionError("card train step: expected 2 launches of "
-                                 "each kernel")
-    (cl, names, cg, cs, cn), (gl, _, gg, gs, gn) = (step_out["cpu"],
-                                                    step_out["card"])
-    gmax = max(g.abs().max().item() for g in cg)
-    flat = torch.cat([g.flatten() for g in cg])
-    dflat = torch.cat([(a - b).flatten() for a, b in zip(gg, cg)])
-    glob_max = dflat.abs().max().item() / gmax
-    glob_norm = (dflat.norm() / flat.norm()).item()
-
-    def per_tensor(grads):
-        return sorted(((a - b).abs().max().item()
-                       / max(b.abs().max().item(), GRAD_FLOOR / GRAD_RTOL
-                             * gmax), n) for n, a, b in zip(names, grads, cg))
-
-    bn_err = max((gs[k] - cs[k]).abs().max().item() for k in cs)
-    for label, grads in (("card", gg), ("CPU, input one rounding off",
-                                        step_out["cpu nudged"][2])):
-        ratios = per_tensor(grads)
-        log(f"[4 card vs cpu] train step, {label} against the CPU: worst "
-            f"per-tensor max |dg| / max(max |g|, "
-            f"{GRAD_FLOOR / GRAD_RTOL:g} max |g| of the model): "
-            + ", ".join(f"{n} {r:.2e}" for r, n in ratios[-4:])
-            + f" ({sum(r > GRAD_RTOL for r, _ in ratios)} of {len(ratios)} "
-            f"over {GRAD_RTOL})")
-    log(f"[4 card vs cpu] raft train step, 2x128x160, 2 iters: loss "
-        f"{gl:.7f} on the card, {cl:.7f} on the CPU; grad norm {gn:.6f} / "
-        f"{cn:.6f}; the whole gradient: max |dg| / max |g| {glob_max:.2e}, "
-        f"|dg| / |g| {glob_norm:.2e} (tolerance {GRAD_RTOL}); BN statistics "
-        f"max |d| {bn_err:.2e} (tolerance {ATOL_BN})")
-    if not abs(gl - cl) <= RTOL_LOSS * abs(cl):
-        raise AssertionError(f"card train step: loss {gl} against {cl}")
-    if not bn_err <= ATOL_BN:
-        raise AssertionError(f"card train step: BN statistics {bn_err}")
-    if not (glob_max <= GRAD_RTOL and glob_norm <= GRAD_RTOL):
-        raise AssertionError(f"card train step: gradient {glob_max}, "
-                             f"{glob_norm}")
-    del cpu_model, gpu_model, step_out
+    step_check = {name: train_step_card_vs_cpu(torch, name, dev)
+                  for name in ("raft", "sea_raft_s")}
 
     # ---------------------------------------------------------------- 5
     pyr, coords = main_inputs[torch.float32]
@@ -750,11 +902,13 @@ def main(argv=None) -> int:
     images = torch.from_numpy(np.stack(
         [np.stack(smooth_pair(11, H, W))]).astype(np.float32) / 255.0)
     images = images.permute(0, 1, 4, 2, 3).contiguous().to(dev)
-    fwd = {}
-    for name, extra in [("raft", {}), ("raft", {"mixed_precision": True}),
-                        ("raft_small", {})]:
-        model = ptlflow_tpu_torch.get_model(name, args={"iters": ITERS,
-                                                        **extra})
+    fwd, fwd_profile = {}, {}
+    mixed = {"mixed_precision": True}
+    for name, extra in [("raft", {}), ("raft", mixed), ("raft_small", {}),
+                        ("sea_raft_m", {}), ("sea_raft_m", mixed),
+                        ("sea_raft_l", {}), ("gma", {})]:
+        iters = dict(SERVE)[name]
+        model = served_model(torch, name, {"iters": iters, **extra}, images)
         label = f"{name} {'mixed' if extra else 'fp32'}"
         for _ in range(3):
             model({"images": images})
@@ -762,10 +916,11 @@ def main(argv=None) -> int:
                       for _ in range(3))
         ms = runs[1]
         fwd[label] = ms
-        log(f"[5 forward] [{tag}] {label}, {W}x{H}, {ITERS} iters: "
+        log(f"[5 forward] [{tag}] {label}, {W}x{H}, {iters} iters: "
             f"{ms:.3f} ms/forward, {1e3 / ms:.2f} fps (median of 3 runs of "
             f"10 forwards: {', '.join(f'{r:.3f}' for r in runs)} ms)")
-        profile_forward(torch, model, images, label, tag, ms)
+        fwd_profile[label] = profile_forward(torch, model, images, label, tag,
+                                             ms)
         del model
 
     # ---------------------------------------------------------------- 6
@@ -940,6 +1095,9 @@ def main(argv=None) -> int:
                          "through jax.grad of its XLA lookup",
         "launches": sum(train["lookup_backward"]),
         "launches_per_step": train["lookup_backward"],
+        "launches_by_path": {f"{name} train step at 128x160, 2 iters":
+                             check["launches"][1]
+                             for name, check in step_check.items()},
         "max_abs_err": bwd_err,
         "max_abs_grad": bwd_gmax,
         "ms": bwd_ms,
@@ -954,6 +1112,8 @@ def main(argv=None) -> int:
     if against:
         kernels[0]["against"] = against
     log(json.dumps({"forward_ms": fwd, "card": tag}))
+    log(json.dumps({"forward_profile": fwd_profile, "card": tag}))
+    log(json.dumps({"train_step_card_vs_cpu": step_check, "card": tag}))
     log(json.dumps({"train": train, "train_profile": train_profile,
                     "card": tag}))
     log(tag)
@@ -965,9 +1125,11 @@ def main(argv=None) -> int:
 
 
 def profile_forward(torch, model, images, label: str, tag: str,
-                    event_ms: float) -> None:
-    """Device time by kernel over one forward (torch.profiler).  A first
-    profiled forward absorbs the tracer's start-up and is not read."""
+                    event_ms: float) -> dict:
+    """Device time by kernel over one forward (torch.profiler): busy ms,
+    launches, idle share against the unprofiled ``event_ms``, the lookup's
+    share and the top kernels.  A first profiled forward absorbs the
+    tracer's start-up and is not read."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -988,7 +1150,7 @@ def profile_forward(torch, model, images, label: str, tag: str,
     if not rows:
         log(f"[5 profile] [{tag}] {label}: no device time recorded: not "
             f"measured")
-        return
+        return {"busy_ms": None}
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     lookup = sum(r[0] for r in rows if "corr_lookup" in r[2])
@@ -1000,6 +1162,10 @@ def profile_forward(torch, model, images, label: str, tag: str,
         f"({lookup / busy:.1%} of kernel time)")
     for ms, count, key in rows[:12]:
         log(f"  {ms:9.3f} ms  {count:5d}x  {key[:100]}")
+    return {"busy_ms": busy, "launches": launches, "wall_ms": wall_ms,
+            "idle": 1 - busy / event_ms, "lookup_ms": lookup,
+            "lookup_share": lookup / busy,
+            "top": [[ms, n, key[:80]] for ms, n, key in rows[:8]]}
 
 
 def profile_train_step(torch, step, state, batch, level_shapes, tag: str,

@@ -20,6 +20,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
+from ...nn import train_mode
 from ...ops.resize import InputPadder, InputScaler
 
 
@@ -60,9 +61,17 @@ class BaseModel(nn.Module):
     def init_params(self, seed: int = 0) -> "BaseModel":
         """Random weights from ``seed``, drawn with a ``torch.Generator`` on
         the CPU in a fixed module order, so a seed gives the same weights on
-        every device: convs kaiming-normal (fan_out, relu) with uniform
-        biases, norms at weight 1, bias 0, mean 0, var 1."""
+        every device, with the JAX package's initialisers: convs
+        kaiming-normal (fan_out, relu) with uniform biases; linear weights
+        and biases uniform in +-1/sqrt(in_features); embeddings standard
+        normal; norms at weight 1, bias 0, mean 0, var 1.  A module's own
+        parameters (layer scales) are set by its ``init_own_params()``."""
         gen = torch.Generator().manual_seed(seed)
+
+        def uniform(t: torch.Tensor, bound: float) -> None:
+            t.copy_(torch.empty(t.shape).uniform_(-bound, bound,
+                                                  generator=gen))
+
         for mod in self.modules():
             if isinstance(mod, nn.Conv2d):
                 kh, kw = mod.kernel_size
@@ -72,16 +81,40 @@ class BaseModel(nn.Module):
                 mod.weight.copy_(w)
                 if mod.bias is not None:
                     fan_in = mod.in_channels // mod.groups * kh * kw
-                    bound = 1.0 / math.sqrt(fan_in)
-                    bias = torch.empty(mod.bias.shape).uniform_(
-                        -bound, bound, generator=gen)
-                    mod.bias.copy_(bias)
-            elif isinstance(mod, nn.BatchNorm2d):
+                    uniform(mod.bias, 1.0 / math.sqrt(fan_in))
+            elif isinstance(mod, nn.Linear):
+                bound = 1.0 / math.sqrt(mod.in_features)
+                uniform(mod.weight, bound)
+                if mod.bias is not None:
+                    uniform(mod.bias, bound)
+            elif isinstance(mod, nn.Embedding):
+                mod.weight.copy_(torch.empty(mod.weight.shape).normal_(
+                    generator=gen))
+            elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm)):
                 mod.reset_parameters()
+            if hasattr(mod, "init_own_params"):
+                mod.init_own_params()
         return self
 
     def forward(self, inputs: Dict[str, torch.Tensor],
                 training: bool = False) -> Dict[str, torch.Tensor]:
+        """``_forward`` with grad mode and every submodule's mode set from
+        ``training``, not ``self.training``: BatchNorm uses batch statistics
+        and updates its running statistics exactly when ``training`` is
+        true, as in the JAX package, and the eval forward builds no autograd
+        graph.  A model built with ``mixed_precision`` stores bf16 weights
+        and refuses to train."""
+        if training and getattr(self, "mixed_precision", False):
+            raise ValueError(
+                "this model stores bf16 weights (mixed_precision=True), where "
+                "the JAX package keeps fp32 weights and trains in fp32 "
+                "(ROADMAP.md, section 3); build it without mixed_precision "
+                "to train it")
+        with torch.set_grad_enabled(training), train_mode(self, training):
+            return self._forward(inputs, training)
+
+    def _forward(self, inputs: Dict[str, torch.Tensor],
+                 training: bool) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
     def preprocess_images(

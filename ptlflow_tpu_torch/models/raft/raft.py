@@ -13,11 +13,11 @@ correlation is queued in ROADMAP.md.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ...nn import cast_params, train_mode
+from ...nn import cast_params
 from ...ops.correlation import (build_corr_pyramid, coords_grid,
                                 make_corr_lookup)
 from ...ops.upsample import convex_upsample, upflow
@@ -104,33 +104,24 @@ class RAFT(BaseModel):
                                              self.corr_radius,
                                              hidden_dim=self.hidden_dim)
 
-    def forward(self, inputs: Dict[str, Any],
-                training: bool = False) -> Dict[str, torch.Tensor]:
+    def _update_extras(self, inp: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """Inputs of the update block after (net, inp, corr, flow), computed
+        once per forward from the context features: none for RAFT."""
+        return ()
+
+    def _forward(self, inputs: Dict[str, Any],
+                 training: bool) -> Dict[str, torch.Tensor]:
         """Eval: ``flows`` (B, 1, 2, H, W) and ``flow_small`` (B, 2, H/8,
-        W/8), with no autograd graph.  ``inputs["prev_preds"]["flow_small"]``
-        of the previous pair, where given, warm-starts the coords by its
-        forward projection (``ops.forward_interpolate``).
+        W/8).  ``inputs["prev_preds"]["flow_small"]`` of the previous pair,
+        where given, warm-starts the coords by its forward projection
+        (``ops.forward_interpolate``).
 
         Training (``training=True``): ``flow_preds`` (iters, B, 2, H, W),
         every iteration's upsampled flow, and ``flows``, the last one as
         (B, 1, 2, H, W), differentiable with respect to the weights.  The
         coords are detached at the start of every iteration, as the JAX
-        package stops their gradient.  The mode follows ``training``, not
-        ``self.training``: BatchNorm uses batch statistics and updates its
-        running statistics exactly when ``training`` is true, as in the
-        JAX package.  A model built with ``mixed_precision`` stores bf16
-        weights and refuses to train."""
-        if training and self.mixed_precision:
-            raise ValueError(
-                "this model stores bf16 weights (mixed_precision=True), where "
-                "the JAX package keeps fp32 weights and trains in fp32 "
-                "(ROADMAP.md, section 3); build it without mixed_precision "
-                "to train it")
-        with torch.set_grad_enabled(training), train_mode(self, training):
-            return self._forward(inputs, training)
-
-    def _forward(self, inputs: Dict[str, Any],
-                 training: bool) -> Dict[str, torch.Tensor]:
+        package stops their gradient.  ``BaseModel.forward`` sets the
+        modes."""
         images, image_resizer = self.preprocess_images(
             inputs["images"], bgr_add=-0.5, bgr_mult=2.0, bgr_to_rgb=True,
             resize_mode="pad", pad_mode="replicate", pad_two_side=True)
@@ -151,6 +142,7 @@ class RAFT(BaseModel):
         cnet = self.cnet(image1)
         net = torch.tanh(cnet[:, :self.hidden_dim])
         inp = torch.relu(cnet[:, self.hidden_dim:])
+        extra = self._update_extras(inp)
 
         b, _, h, w = fmap1.shape
         # coords stay fp32 under mixed precision: bf16 cannot hold pixel
@@ -161,7 +153,7 @@ class RAFT(BaseModel):
         prev = inputs.get("prev_preds")
         if prev is not None and prev.get("flow_small") is not None:
             coords1 = coords1 + forward_interpolate(prev["flow_small"])
-        has_mask = isinstance(self.update_block, BasicUpdateBlock)
+        has_mask = not isinstance(self.update_block, SmallUpdateBlock)
         mask = (torch.zeros((b, 64 * 9, h, w), dtype=fmap1.dtype,
                             device=fmap1.device) if has_mask else None)
 
@@ -174,7 +166,7 @@ class RAFT(BaseModel):
             # the lookup output keeps the pyramid's dtype, as in the JAX
             # package: a bf16 pyramid feeds bf16 correlation convolutions
             net, up_mask, delta_flow = self.update_block(
-                net, inp, corr, flow.to(net.dtype))
+                net, inp, corr, flow.to(net.dtype), *extra)
             coords1 = coords1 + delta_flow
             # SmallUpdateBlock gives no mask: the last one carries over
             if up_mask is not None:

@@ -1,7 +1,9 @@
 """Layers with the JAX package's eval arithmetic.
 
 Convolutions are ``torch.nn.Conv2d`` (OIHW weights; the JAX package stores
-HWIO, see ``utils/convert.py``) and pooling is ``F.avg_pool2d``.  The
+HWIO, see ``utils/convert.py``), linear layers ``torch.nn.Linear`` ((out,
+in) weights; the JAX package stores (in, out)), GELU ``F.gelu`` (exact
+erf, as the JAX package's ``gelu``) and pooling ``F.avg_pool2d``.  The
 modules below are ``torch.nn`` modules with the same parameters and
 buffers, so their ``state_dict`` keys are torch's and the JAX package's; they
 only change how the eval forward computes, to follow
@@ -11,6 +13,7 @@ only change how the eval forward computes, to follow
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -56,3 +59,16 @@ class InstanceNorm2d(nn.InstanceNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.float()).to(x.dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` over the last dimension(s), with the statistics and
+    the affine transform taken in float32 whatever the input's dtype, and
+    the result rounded once to the input's dtype, as the JAX package's
+    ``LayerNorm`` does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight = None if self.weight is None else self.weight.float()
+        bias = None if self.bias is None else self.bias.float()
+        return F.layer_norm(x.float(), self.normalized_shape, weight, bias,
+                            self.eps).to(x.dtype)

@@ -6,5 +6,6 @@ from .correlation import (build_corr_pyramid, coords_grid,  # noqa: F401
                           corr_pyramid_lookup_plain, make_corr_lookup)
 from .grid_sample import interpolate  # noqa: F401
 from .resize import InputPadder, InputScaler  # noqa: F401
-from .upsample import convex_upsample, upflow  # noqa: F401
+from .upsample import (convex_upsample, convex_upsample_data,  # noqa: F401
+                       upflow)
 from .warp import forward_interpolate  # noqa: F401

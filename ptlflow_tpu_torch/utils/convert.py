@@ -5,30 +5,74 @@ names become dotted ones, convolution weights go from HWIO back to OIHW,
 linear weights from (in, out) back to (out, in), and every BatchNorm gets
 the ``num_batches_tracked`` counter that the JAX tree drops.  Takes numpy
 leaves (the caller converts JAX arrays), so nothing here imports JAX.
+
+A 2-D ``weight`` is a linear layer's unless the target module says it is an
+embedding table, which the JAX package stores as torch does.  Given the
+target, the result also holds what the JAX tree drops and a strict load
+needs: a second name of a tensor the target registers twice (SEA-RAFT's
+``bn3`` is also ``downsample.1``) and the buffers the JAX package rebuilds
+on every call (GMA's ``rel_ind``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Set
 
 import numpy as np
 import torch
 
+# Buffers that the JAX package computes where the reference stores them.
+STATIC_BUFFERS = ("rel_ind",)
+
 
 def state_dict_from_jax(params: Dict[str, Any],
-                        prefix: str = "") -> Dict[str, torch.Tensor]:
+                        target: Optional[torch.nn.Module] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """``params``, a nested dict of numpy arrays, as a ``state_dict`` of
+    ``target`` (which only decides the cases above; without it every 2-D
+    ``weight`` is a linear layer's and nothing is added)."""
+    embeddings: Set[str] = set()
+    if target is not None:
+        embeddings = {f"{name}.weight" for name, mod in target.named_modules()
+                      if isinstance(mod, torch.nn.Embedding)}
+    out = _convert(params, "", embeddings)
+    if target is not None:
+        _add_target_only(out, target)
+    return out
+
+
+def _convert(params: Dict[str, Any], prefix: str,
+             embeddings: Set[str]) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for k, v in params.items():
         name = f"{prefix}{k}"
         if isinstance(v, dict):
-            out.update(state_dict_from_jax(v, prefix=name + "."))
+            out.update(_convert(v, name + ".", embeddings))
             continue
         a = np.asarray(v)
         if k == "weight" and a.ndim == 4:  # conv HWIO -> OIHW
             a = np.transpose(a, (3, 2, 0, 1))
-        elif k == "weight" and a.ndim == 2:  # linear (in, out) -> (out, in)
-            a = a.T
+        elif k == "weight" and a.ndim == 2 and name not in embeddings:
+            a = a.T  # linear (in, out) -> (out, in)
         out[name] = torch.from_numpy(np.ascontiguousarray(a).copy())
         if k == "running_mean":
             out[f"{prefix}num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def _add_target_only(out: Dict[str, torch.Tensor],
+                     target: torch.nn.Module) -> None:
+    """Add the target's names of tensors it registers under two names, and
+    its static buffers, where the converted tree lacks them."""
+    own = target.state_dict(keep_vars=True)
+    names_of: Dict[int, list] = {}
+    for name, t in own.items():
+        names_of.setdefault(id(t), []).append(name)
+    for name, t in own.items():
+        if name in out:
+            continue
+        twin = next((n for n in names_of[id(t)] if n in out), None)
+        if twin is not None:
+            out[name] = out[twin]
+        elif name.rsplit(".", 1)[-1] in STATIC_BUFFERS:
+            out[name] = t.detach().clone()

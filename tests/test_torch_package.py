@@ -13,6 +13,7 @@ import torch
 
 import jax.numpy as jnp
 
+import ptlflow_tpu
 import ptlflow_tpu_torch
 from ptlflow_tpu.utils.io_adapter import IOAdapter as JIOAdapter
 from ptlflow_tpu_torch.utils import ckpt as tckpt
@@ -69,14 +70,64 @@ def test_port_sources_import_no_jax():
     assert not offenders
 
 
+PORTED = ["gma", "raft", "raft_small", "sea_raft", "sea_raft_l",
+          "sea_raft_m", "sea_raft_s"]
+
+
 def test_registry():
-    assert ptlflow_tpu_torch.get_model_names() == ["raft", "raft_small"]
-    assert ptlflow_tpu_torch.get_trainable_model_names() == ["raft",
-                                                             "raft_small"]
-    assert "raft" in ptlflow_tpu_torch.get_ptlflow_trained_model_names()
+    assert ptlflow_tpu_torch.get_model_names() == PORTED
+    assert ptlflow_tpu_torch.get_trainable_model_names() == PORTED
+    assert ptlflow_tpu_torch.get_ptlflow_trained_model_names() == [
+        "gma", "raft", "raft_small"]
     assert ptlflow_tpu_torch.get_model_reference("raft").__name__ == "raft"
     with pytest.raises(ValueError):
         ptlflow_tpu_torch.get_model_reference("no_such_model")
+
+
+def test_registry_names_and_flags_are_the_jax_packages():
+    """Every port name is a JAX registry name, trainable and
+    ptlflow-trained exactly where the JAX package says so."""
+    names = ptlflow_tpu_torch.get_model_names()
+    assert set(names) <= set(ptlflow_tpu.get_model_names())
+    for fn in ("get_trainable_model_names",
+               "get_ptlflow_trained_model_names"):
+        want = set(getattr(ptlflow_tpu, fn)()) & set(names)
+        assert set(getattr(ptlflow_tpu_torch, fn)()) == want, fn
+
+
+@pytest.mark.parametrize("name", ["sea_raft_m", "gma"])
+def test_init_params_is_seeded(name):
+    """``init_params(seed)`` gives the same tensors on two calls, every
+    layer kind included (Linear, LayerNorm, Embedding, the layer scales),
+    draws nothing from torch's global generator, and starts the layer
+    scales where the JAX package does: ConvNeXt's at 1e-6, GMA's
+    aggregator at 0."""
+    model = ptlflow_tpu_torch.get_model_reference(name)(iters=1)
+    torch.manual_seed(123)
+    want_global = torch.rand(4)
+    torch.manual_seed(123)
+    first = {k: v.clone() for k, v in model.init_params(5).state_dict().items()}
+    assert torch.equal(torch.rand(4), want_global)
+    # overwrite every weight and statistic, then draw the same seed again
+    for t in model.state_dict().values():
+        if t.is_floating_point():
+            t.fill_(7)
+    second = model.init_params(5).state_dict()
+    for k, v in first.items():
+        torch.testing.assert_close(second[k], v, rtol=0, atol=0, msg=k)
+    other = model.init_params(6).state_dict()
+    if name == "gma":
+        assert model.update_block.aggregator.gamma.item() == 0.0
+        emb = "att.pos_emb.rel_height.weight"
+        assert not torch.equal(other[emb], first[emb])
+        assert abs(first[emb].std().item() - 1) < 0.05
+    else:
+        gamma = model.update_block.refine[0].gamma
+        assert torch.all(gamma == 1e-6)
+        lin = "update_block.refine.0.pwconv1.weight"
+        assert not torch.equal(other[lin], first[lin])
+        assert first[lin].abs().max() <= 384 ** -0.5
+        assert torch.all(first["update_block.refine.0.norm.weight"] == 1)
 
 
 def test_get_model_defaults_to_the_card():

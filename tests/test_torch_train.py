@@ -46,8 +46,10 @@ def nhwc(t):
 
 def random_params(shapes, rng):
     """Seeded numpy leaves for a JAX parameter tree of shapes: convolutions
-    He-normal over their fan-out, biases uniform in +-0.1, BatchNorm
-    weights, biases and running statistics randomised."""
+    He-normal over their fan-out, biases, linear weights and embeddings
+    uniform in +-0.1, BatchNorm and LayerNorm weights, biases and running
+    statistics randomised, and layer scales (``gamma``) uniform in [0.1, 1]
+    so that the blocks they scale count."""
     out = {k: random_params(v, rng) for k, v in shapes.items()
            if isinstance(v, dict)}
     leaves = {k: v.shape for k, v in shapes.items() if not isinstance(v, dict)}
@@ -57,6 +59,11 @@ def random_params(shapes, rng):
                    "running_var": 1 + 0.5 * rng.rand(*shape),
                    "weight": 1 + 0.1 * rng.randn(*shape),
                    "bias": 0.1 * rng.randn(*shape)}[k]
+        elif k == "gamma":
+            val = rng.uniform(0.1, 1.0, shape)
+        elif len(leaves.get("weight", ())) == 1:  # a LayerNorm
+            val = {"weight": 1 + 0.1 * rng.randn(*shape),
+                   "bias": 0.1 * rng.randn(*shape)}[k]
         elif k == "weight" and len(shape) == 4:  # HWIO
             std = math.sqrt(2.0 / (shape[0] * shape[1] * shape[3]))
             val = std * rng.randn(*shape)
@@ -64,6 +71,16 @@ def random_params(shapes, rng):
             val = rng.uniform(-0.1, 0.1, shape)
         out[k] = val.astype(np.float32)
     return out
+
+
+def carry_random(jmod, tmod, seed):
+    """``random_params`` for the JAX module ``jmod``, loaded into the
+    port's ``tmod`` (in eval mode).  Returns the JAX params."""
+    shapes = jax.eval_shape(jmod.init, jax.random.PRNGKey(0))
+    params = random_params(shapes, np.random.RandomState(seed))
+    tmod.load_state_dict(state_dict_from_jax(params, tmod), strict=True)
+    tmod.eval()
+    return jax.tree_util.tree_map(jnp.asarray, params)
 
 
 def jax_and_port(name, seed, iters, **args):
@@ -80,7 +97,7 @@ def jax_and_port(name, seed, iters, **args):
     jmodel.params = jax.tree_util.tree_map(jnp.asarray, params)
     tmodel = ptlflow_tpu_torch.get_model(name, args={"iters": iters, **args},
                                          device="cpu")
-    tmodel.load_state_dict(state_dict_from_jax(params), strict=True)
+    tmodel.load_state_dict(state_dict_from_jax(params, tmodel), strict=True)
     return jmodel, tmodel, params
 
 
