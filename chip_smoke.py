@@ -37,14 +37,21 @@ Phases, each of which must pass, else the script exits non-zero:
    on seeded synthetic batches, counting both kernels' launches per step;
 7. time the backward kernel at the training shape against its plain
    version and the backward of a ``grid_sample`` lookup, and profile one
-   train step.
+   train step;
+8. run the evaluation harness as a user would: write a Sintel tree at
+   436x1024 and a KITTI 2015 tree at 375x1242 with the port's own writers
+   (no OpenCV) and read every file back bit for bit; ``validate(args)`` of
+   ``raft`` over both (12 iterations, warm start, outputs written), its
+   metrics held to float64 numpy metrics of the written flows, 12 lookup
+   launches a pair, its first flow held to a direct forward; ``infer`` on 3
+   frames; ``model_benchmark`` of ``raft`` in fp32 and bf16.
 
 ``--against`` builds other versions of ``csrc/corr_lookup.cu`` (the same C
 interface) and times each in turns with the repo's kernel on the same
 inputs (other, repo, repo, other), in the same run.
 
 The second-to-last line is ``{"kernels": [...]}``, the line before it the
-card's name and power limit, and the last line
+card's name and power limit (after ``{"harness": ...}``, phase 8's numbers), and the last line
 ``{"ok": true, "device": {...}}``.  With no card it prints no result and
 exits 2.
 """
@@ -56,6 +63,7 @@ import ctypes
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -64,6 +72,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 H, W = 436, 1024  # Sintel frames: the main path's size
+KITTI_H, KITTI_W = 375, 1242  # KITTI 2015 frames (phase 8)
 ITERS = 12
 # (model, iterations) served at H x W: RAFT's and GMA's 12 GRU iterations,
 # SEA-RAFT's own depths (sea_raft_m 4 refinements, sea_raft_l 12)
@@ -1055,6 +1064,17 @@ def main(argv=None) -> int:
         f"algorithms), against {step_ms:.3f} ms")
     del model, state, step, pyr_t, coords_t, grad_t, train_inputs
 
+    # ---------------------------------------------------------------- 8
+    work = os.path.join(HERE, "_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        harness = harness_phase(torch, dev, tag, work, fwd["raft fp32"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches["raft validate, 10 pairs"] = harness["validate_launches"]
+    launches["raft infer, 3 frames"] = harness["infer_launches"]
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -1116,12 +1136,264 @@ def main(argv=None) -> int:
     log(json.dumps({"train_step_card_vs_cpu": step_check, "card": tag}))
     log(json.dumps({"train": train, "train_profile": train_profile,
                     "card": tag}))
+    log(json.dumps({"harness": harness}))
     log(tag)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def harness_data(root: str):
+    """Phase 8's dummy datasets, written by the port's own writers: a
+    Sintel tree at H x W (2 sequences x 3 frames, clean and final, each
+    sequence a smooth texture moved by its own whole-pixel shift, that
+    shift as GT) and a KITTI 2015 tree at KITTI_H x KITTI_W (2 pairs, 16-bit
+    flow PNGs, a fifth of the pixels invalid).  Returns the trees' roots
+    and every file's expected content: ``{path: (kind, array)}``."""
+    from ptlflow_tpu_torch.data import dummy_datasets
+
+    sintel = {}
+    for s in range(2):
+        shift = (2 + s, 1 + s)
+        flow = np.broadcast_to(np.array(shift, np.float32),
+                               (H, W, 2)).copy()
+        sintel[s] = (smooth_frames(30 + s, H, W, 3, shift), [flow, flow])
+    kitti = {}
+    rng = np.random.RandomState(40)
+    for i in range(2):
+        shift = (3 - 2 * i, 1 + i)
+        flow = np.broadcast_to(np.array(shift, np.float32),
+                               (KITTI_H, KITTI_W, 2)).copy()
+        flow[rng.rand(KITTI_H, KITTI_W) < 0.2] = np.nan
+        kitti[i] = (list(smooth_pair(40 + i, KITTI_H, KITTI_W, shift)), flow)
+    s_root = dummy_datasets.write_sintel(root, n_seqs=2, n_frames=3,
+                                         size=(H, W), frames=sintel.get)
+    k_root = dummy_datasets.write_kitti(root, year="2015", n=2,
+                                        size=(KITTI_H, KITTI_W),
+                                        frames=kitti.get)
+    expect = {}
+    for s, (frames, flows) in sintel.items():
+        for split in ("training", "test"):
+            for pass_name in ("clean", "final"):
+                for f, img in enumerate(frames, 1):
+                    expect[os.path.join(s_root, split, pass_name, f"seq_{s}",
+                                        f"frame_{f:04d}.png")] = ("img", img)
+        for f, flow in enumerate(flows, 1):
+            expect[os.path.join(s_root, "training", "flow", f"seq_{s}",
+                                f"frame_{f:04d}.flo")] = ("flo", flow)
+            expect[os.path.join(s_root, "training", "occlusions", f"seq_{s}",
+                                f"frame_{f:04d}.png")] = (
+                "img", np.zeros((H, W), np.uint8))
+    for i, (frames, flow) in kitti.items():
+        for split in ("training", "testing"):
+            for t, img in zip((10, 11), frames):
+                expect[os.path.join(k_root, split, "image_2",
+                                    f"{i:06d}_{t}.png")] = ("img", img)
+        for sub in ("flow_occ", "flow_noc"):
+            expect[os.path.join(k_root, "training", sub,
+                                f"{i:06d}_10.png")] = ("kitti", flow)
+    return str(s_root), str(k_root), sintel, kitti, expect
+
+
+def numpy_flow_metrics(preds, gts) -> dict:
+    """The validate metrics in float64 numpy, straight from the Spring and
+    KITTI definitions: per pair, masked means over the valid pixels (GT not
+    NaN) of epe, epe < 1/3/5 px, Fl-all (epe > 3 px and > 5% of |gt|, in
+    percent) and WAUC (100 * sum_i w_i #(epe <= i/20) / (n sum_i w_i),
+    w_i = 1 - (i-1)/100, i = 1..100); then the mean over pairs."""
+    out = {k: [] for k in ("epe", "px1", "px3", "px5", "flall", "wauc")}
+    w = 1.0 - (np.arange(1, 101) - 1.0) / 100.0
+    for pred, gt in zip(preds, gts):
+        valid = ~np.isnan(gt).any(axis=-1)
+        g = gt[valid].astype(np.float64)
+        e = np.linalg.norm(pred[valid].astype(np.float64) - g, axis=-1)
+        mag = np.linalg.norm(g, axis=-1)
+        out["epe"].append(e.mean())
+        for t in (1, 3, 5):
+            out[f"px{t}"].append((e < t).mean())
+        out["flall"].append(100.0 * ((e > 3) & (e > 0.05 * mag)).mean())
+        counts = np.array([(e <= i / 20.0).sum() for i in range(1, 101)])
+        out["wauc"].append(100.0 * (w * counts).sum() / (e.size * w.sum()))
+    return {k: float(np.mean(v)) for k, v in out.items()}
+
+
+def harness_phase(torch, dev, tag: str, work: str, raft_fp32_ms: float
+                  ) -> dict:
+    """Phase 8: the evaluation harness on the card.  Writes phase 8's
+    trees (``harness_data``) and reads every file back with ``image_io`` /
+    ``flow_io``, bit for bit; runs ``validate(args)`` of ``raft`` (12
+    iterations, warm start, outputs written) over Sintel + KITTI 2015 with
+    phase 3's warm-start weights (the init, flow head damped to steps of
+    trained size) saved as a checkpoint; holds its metrics to float64 numpy
+    metrics of the written flows, its launches to 12 a pair and its first
+    flow to a direct IOAdapter forward; runs ``infer`` on 3 frames and
+    ``model_benchmark`` of ``raft`` in fp32 and bf16."""
+    import ptlflow_tpu_torch
+    from ptlflow_tpu_torch.ops import correlation as corr
+    from ptlflow_tpu_torch.scripts import infer as tinfer
+    from ptlflow_tpu_torch.scripts import model_benchmark as tbench
+    from ptlflow_tpu_torch.scripts import validate as tvalidate
+    from ptlflow_tpu_torch.utils import flow_io, image_io
+    from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+
+    t0 = time.perf_counter()
+    s_root, k_root, sintel, kitti, expect = harness_data(work)
+    write_s = time.perf_counter() - t0
+    on_disk = {os.path.join(d, f) for top in (s_root, k_root)
+               for d, _, files in os.walk(top) for f in files}
+    if on_disk != set(expect):
+        raise AssertionError(f"the writers made {sorted(on_disk ^ set(expect))}"
+                             f" beyond or short of the expected files")
+    decode_ms = []
+    for path, (kind, want) in sorted(expect.items()):
+        if kind == "img":
+            t1 = time.perf_counter()
+            got = image_io.imread(path, image_io.IMREAD_UNCHANGED)
+            if got.shape == (H, W, 3):
+                decode_ms.append((time.perf_counter() - t1) * 1e3)
+        elif kind == "flo":
+            got = flow_io.read_flo(path)
+        else:
+            got = flow_io.read_flow_png(path)
+        if got.dtype != want.dtype or not np.array_equal(got, want,
+                                                          equal_nan=True):
+            raise AssertionError(f"{path} reads back otherwise than written")
+    # the decoder's slow path: every row Paeth-filtered (the written files
+    # use filter None), undone along anti-diagonals
+    filtered = np.random.RandomState(0).randint(0, 256, (H, W, 3), np.uint8)
+    paeth_ms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        image_io.unfilter(np.full(H, 4, np.uint8), filtered)
+        paeth_ms.append((time.perf_counter() - t1) * 1e3)
+    log(f"[8 data] [{tag}] wrote {len(expect)} files in {write_s:.2f} s "
+        f"(Sintel {W}x{H}: 2 sequences x 3 frames, clean and final; KITTI "
+        f"2015 {KITTI_W}x{KITTI_H}: 2 pairs); every file reads back bit for "
+        f"bit; decode of a {W}x{H} PNG on the host: median "
+        f"{np.median(decode_ms):.2f} ms over {len(decode_ms)} (filter "
+        f"None); undoing the Paeth filter of a whole frame "
+        f"{np.median(paeth_ms):.2f} ms")
+
+    cfg = os.path.join(work, "datasets.yaml")
+    with open(cfg, "w") as f:
+        f.write(f"mpi_sintel: {s_root}\nkitti_2015: {k_root}\n")
+    ckpt = os.path.join(work, "raft_damped.ckpt")
+    model = ptlflow_tpu_torch.get_model("raft", args={"iters": ITERS})
+    damp_flow_head(model)
+    torch.save(model.state_dict(), ckpt)
+    del model
+    out = os.path.join(work, "validate")
+    args = tvalidate._parse_args([
+        "--model", "raft", "--ckpt_path", ckpt, "--iters", str(ITERS),
+        "--val_dataset", "sintel-trainval+kitti-2015-trainval",
+        "--warm_start", "--write_outputs", "--flow_format", "flo",
+        "--set", f"data.dataset_config_path={cfg}", "--output_path", out])
+    timings = {}
+    corr.corr_lookup_kernel.launches = 0
+    t0 = time.perf_counter()
+    metrics = tvalidate.validate(args, timings=timings)
+    torch.cuda.synchronize()
+    validate_s = time.perf_counter() - t0
+    launches = corr.corr_lookup_kernel.launches
+    pairs = {"sintel-trainval": [], "kitti-2015-trainval": []}
+    for pass_name in ("clean", "final"):  # the dataset's order
+        for s in range(2):
+            for k in range(2):
+                pairs["sintel-trainval"].append(sintel[s][1][k])
+    pairs["kitti-2015-trainval"] = [kitti[i][1] for i in range(2)]
+    n_pairs = sum(len(v) for v in pairs.values())
+    if launches != ITERS * n_pairs:
+        raise AssertionError(f"validate: {launches} lookup launches for "
+                             f"{n_pairs} pairs, expected {ITERS} a pair")
+    oracle = {}
+    for name, gts in pairs.items():
+        preds = [flow_io.read_flo(os.path.join(out, "raft", name,
+                                               f"{i:06d}.flo"))
+                 for i in range(len(gts))]
+        if any(p.shape != g.shape or not np.isfinite(p).all()
+               for p, g in zip(preds, gts)):
+            raise AssertionError(f"validate {name}: flows of the wrong shape "
+                                 f"or not finite")
+        want = numpy_flow_metrics(preds, gts)
+        got = metrics[name]
+        errs = {k: abs(got[k] - want[k]) for k in want}
+        oracle[name] = {"metrics": {k: got[k] for k in want},
+                        "numpy": want, "abs_err": errs}
+        log(f"[8 validate] {name}: " + ", ".join(
+            f"{k} {got[k]:.6f} (numpy {want[k]:.6f})" for k in want))
+        for k, e in errs.items():
+            if not e <= (1e-3 if k == "wauc" else 1e-4):
+                raise AssertionError(f"validate {name}: {k} {got[k]} against "
+                                     f"numpy's {want[k]}")
+    model = ptlflow_tpu_torch.get_model("raft", ckpt_path=ckpt,
+                                        args={"iters": ITERS})
+    adapter = IOAdapter(model)
+    direct = adapter.unscale(model(adapter.prepare_inputs(
+        sintel[0][0][:2])))["flows"][0, 0].permute(1, 2, 0).cpu().numpy()
+    first = flow_io.read_flo(os.path.join(out, "raft", "sintel-trainval",
+                                          "000000.flo"))
+    direct_err = float(np.abs(direct - first).max())
+    del model
+    if not direct_err <= 1e-5:
+        raise AssertionError(f"validate's first flow is {direct_err} px off "
+                             f"a direct forward")
+    stage = {k: [v for t in timings.values() for v in t[k]]
+             for k in ("decode_ms", "forward_ms", "metrics_ms", "write_ms",
+                       "pair_ms")}
+    per_pair = {k: float(np.median(v)) for k, v in stage.items()}
+    log(f"[8 validate] [{tag}] raft, {ITERS} iters, warm start, "
+        f"{n_pairs} pairs: metrics within 1e-4 of numpy (wauc 1e-3), "
+        f"{launches} lookup launches ({ITERS} a pair), first flow "
+        f"{direct_err:.2e} px from a direct forward; {validate_s:.3f} s in "
+        f"all, {validate_s / n_pairs * 1e3:.1f} ms a pair; median per "
+        f"pair: {per_pair['pair_ms']:.1f} ms in the loop; decode "
+        f"{per_pair['decode_ms']:.2f} ms and output writing "
+        f"{per_pair['write_ms']:.2f} ms (host), forward "
+        f"{per_pair['forward_ms']:.3f} ms and metrics "
+        f"{per_pair['metrics_ms']:.3f} ms (CUDA events); phase 5's raft "
+        f"fp32 forward {raft_fp32_ms:.3f} ms")
+
+    corr.corr_lookup_kernel.launches = 0
+    written = tinfer.infer(tinfer._parse_args([
+        "--model", "raft", "--ckpt_path", ckpt, "--set",
+        f"model.init_args.iters={ITERS}", "--input_path",
+        os.path.join(s_root, "training", "clean", "seq_0"), "--warm_start",
+        "--output_path", os.path.join(work, "infer")]))
+    infer_launches = corr.corr_lookup_kernel.launches
+    flows = [flow_io.read_flo(p) for p in written]
+    if (len(flows) != 2 or infer_launches != 2 * ITERS
+            or any(f.shape != (H, W, 2) or not np.isfinite(f).all()
+                   for f in flows)):
+        raise AssertionError(f"infer: {len(flows)} flows, {infer_launches} "
+                             f"lookup launches")
+    log(f"[8 infer] 3 frames -> {[os.path.basename(p) for p in written]}, "
+        f"finite {W}x{H} flows, {infer_launches} lookup launches")
+
+    rows = tbench.main([
+        "--models", "raft", "--input_size", str(H), str(W), "--iters",
+        str(ITERS), "--datatypes", "fp32", "bf16", "--num_trials", "1",
+        "--num_samples", "10", "--output_path", os.path.join(work, "bench")])
+    if [r["datatype"] for r in rows] != ["fp32", "bf16"]:
+        raise AssertionError(f"model_benchmark gave {len(rows)} rows")
+    bench = {r["datatype"]: {"ms": r["time_ms"], "flops": r["flops"],
+                             "mem_gb": r["mem_gb"], "params": r["params"]}
+             for r in rows}
+    log(f"[8 benchmark] [{tag}] raft {W}x{H}, {ITERS} iters, 1 trial of 10: "
+        + "; ".join(f"{k} {v['ms']:.3f} ms, {v['flops'] / 1e9:.1f} GFLOP "
+                    f"(FlopCounterMode), peak {v['mem_gb']:.3f} GB"
+                    for k, v in bench.items())
+        + f"; phase 5's raft fp32 {raft_fp32_ms:.3f} ms")
+    return {"card": tag, "pairs": n_pairs,
+            "decode_ms_per_frame": float(np.median(decode_ms)),
+            "paeth_unfilter_ms_per_frame": float(np.median(paeth_ms)),
+            "per_pair_median": per_pair, "per_pair": stage,
+            "validate_ms_per_pair": validate_s / n_pairs * 1e3,
+            "validate_launches": launches, "infer_launches": infer_launches,
+            "direct_forward_err_px": direct_err, "metrics": oracle,
+            "benchmark": bench, "phase5_raft_fp32_ms": raft_fp32_ms,
+            "write_s": write_s}
 
 
 def profile_forward(torch, model, images, label: str, tag: str,

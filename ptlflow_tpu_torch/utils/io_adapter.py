@@ -43,19 +43,29 @@ class IOAdapter:
                        inputs: Optional[Dict[str, Any]] = None,
                        image_only: bool = False, **kwargs) -> Dict[str, Any]:
         """images: HWC (or a list of HWC, or NHWC, or BNHWC), uint8 or
-        float in [0, 1]."""
+        float in [0, 1]; or a float tensor already in the model's
+        (B, N, 3, H, W) layout, as the datasets give it."""
         if inputs is None:
             inputs = {}
-        arr = (np.stack([np.asarray(im) for im in images])
-               if isinstance(images, (list, tuple)) else np.asarray(images))
-        if arr.ndim == 3:
-            arr = arr[None]
-        if arr.ndim == 4:
-            arr = arr[None]  # (B, N, H, W, C)
-        if arr.dtype == np.uint8:
-            arr = arr.astype(np.float32) / 255.0
-        arr = arr.astype(np.float32)
-        inputs["images"] = self._tensor(np.transpose(arr, (0, 1, 4, 2, 3)))
+        if isinstance(images, torch.Tensor):
+            if images.dim() != 5 or not images.is_floating_point():
+                raise ValueError(f"a tensor of images must be float "
+                                 f"(B, N, 3, H, W), not {images.dtype} "
+                                 f"{tuple(images.shape)}")
+            inputs["images"] = images.to(self.device, torch.float32)
+        else:
+            arr = (np.stack([np.asarray(im) for im in images])
+                   if isinstance(images, (list, tuple))
+                   else np.asarray(images))
+            if arr.ndim == 3:
+                arr = arr[None]
+            if arr.ndim == 4:
+                arr = arr[None]  # (B, N, H, W, C)
+            if arr.dtype == np.uint8:
+                arr = arr.astype(np.float32) / 255.0
+            arr = arr.astype(np.float32)
+            inputs["images"] = self._tensor(
+                np.transpose(arr, (0, 1, 4, 2, 3)))
 
         if flows is not None and not image_only:
             f = np.asarray(flows, np.float32)
