@@ -44,14 +44,24 @@ Phases, each of which must pass, else the script exits non-zero:
    ``raft`` over both (12 iterations, warm start, outputs written), its
    metrics held to float64 numpy metrics of the written flows, 12 lookup
    launches a pair, its first flow held to a direct forward; ``infer`` on 3
-   frames; ``model_benchmark`` of ``raft`` in fp32 and bf16.
+   frames; ``model_benchmark`` of ``raft`` in fp32 and bf16;
+9. run the training entry point as a user would: write a FlyingChairs tree
+   at 384x512 with the port's writer, run ``scripts/train.py --config
+   raft-train1-chairs.yaml`` (368x496 crops, batch 10, 12 iterations, 4
+   loader workers) for 6 steps validating every 3, then ``--resume`` to 8,
+   counting 12 lookups and 12 backward lookups a step, and load
+   ``last.ckpt`` strictly into a fresh ``raft`` whose flows must equal the
+   trained model's; hold ``DeviceCompose`` on the card against the same
+   pipeline on the CPU (one sample, the same draws, one noise field) and
+   time it; train 4 steps with ``data.train_transform_cuda=true``.
 
 ``--against`` builds other versions of ``csrc/corr_lookup.cu`` (the same C
 interface) and times each in turns with the repo's kernel on the same
 inputs (other, repo, repo, other), in the same run.
 
 The second-to-last line is ``{"kernels": [...]}``, the line before it the
-card's name and power limit (after ``{"harness": ...}``, phase 8's numbers), and the last line
+card's name and power limit (after ``{"harness": ...}`` and
+``{"train_cli": ...}``, phases 8 and 9's numbers), and the last line
 ``{"ok": true, "device": {...}}``.  With no card it prints no result and
 exits 2.
 """
@@ -109,6 +119,14 @@ TRAIN_STEPS = 5
 # gradient is rounding, as where it is zero in exact arithmetic).
 GRAD_RTOL, GRAD_FLOOR = 1e-3, 1e-6
 RTOL_LOSS, ATOL_BN = 1e-5, 1e-5
+# Phase 9: the training entry point with raft-train1-chairs.yaml
+RAFT_CHAIRS_CONFIG = "ptlflow_tpu/models/raft/configs/raft-train1-chairs.yaml"
+CHAIRS_H, CHAIRS_W = 384, 512  # FlyingChairs frames
+CHAIRS_PAIRS = 61  # 60 in chairs-train (6 batches of 10 an epoch), 1 in val
+CLI_STEPS, CLI_RESUMED, CLI_VAL_EVERY, CLI_CUDA_STEPS = 6, 8, 3, 4
+# DeviceCompose, card against CPU on one Chairs sample, the same draws and
+# one noise field: float32 sums of the same few terms in another order
+ATOL_AUG_IMAGES, ATOL_AUG_FLOWS_PX = 1e-5, 1e-4
 
 
 def card_tag() -> str:
@@ -1075,6 +1093,22 @@ def main(argv=None) -> int:
     launches["raft validate, 10 pairs"] = harness["validate_launches"]
     launches["raft infer, 3 frames"] = harness["infer_launches"]
 
+    # ---------------------------------------------------------------- 9
+    work = os.path.join(HERE, "_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        train_cli = train_cli_phase(torch, dev, tag, work,
+                                    train["median_step_ms"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    cli_path = (f"raft train CLI: {CLI_STEPS} steps + "
+                f"{CLI_STEPS // CLI_VAL_EVERY} validations, resumed to "
+                f"{CLI_RESUMED}, {CLI_CUDA_STEPS} with train_transform_cuda")
+    cli_launches = [sum(run[i] for run in train_cli["launches"].values())
+                    for i in (0, 1)]
+    launches[cli_path] = cli_launches[0]
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -1115,9 +1149,10 @@ def main(argv=None) -> int:
                          "through jax.grad of its XLA lookup",
         "launches": sum(train["lookup_backward"]),
         "launches_per_step": train["lookup_backward"],
-        "launches_by_path": {f"{name} train step at 128x160, 2 iters":
-                             check["launches"][1]
-                             for name, check in step_check.items()},
+        "launches_by_path": dict(
+            {f"{name} train step at 128x160, 2 iters": check["launches"][1]
+             for name, check in step_check.items()},
+            **{cli_path: cli_launches[1]}),
         "max_abs_err": bwd_err,
         "max_abs_grad": bwd_gmax,
         "ms": bwd_ms,
@@ -1137,6 +1172,7 @@ def main(argv=None) -> int:
     log(json.dumps({"train": train, "train_profile": train_profile,
                     "card": tag}))
     log(json.dumps({"harness": harness}))
+    log(json.dumps({"train_cli": train_cli}))
     log(tag)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1394,6 +1430,236 @@ def harness_phase(torch, dev, tag: str, work: str, raft_fp32_ms: float
             "direct_forward_err_px": direct_err, "metrics": oracle,
             "benchmark": bench, "phase5_raft_fp32_ms": raft_fp32_ms,
             "write_s": write_s}
+
+
+def train_cli_phase(torch, dev, tag: str, work: str, bare_step_ms: float
+                    ) -> dict:
+    """Phase 9: ``scripts/train.py`` as a user runs it, on the card, with
+    ``raft-train1-chairs.yaml`` at full width (368x496 crops of 384x512
+    Chairs pairs written by the port's writer, batch 10, 12 iterations, 4
+    loader workers): 6 steps validating every 3, then ``--resume`` to 8;
+    every step must launch 12 lookups and 12 backward lookups, the resume
+    must pick up at step 6, and ``last.ckpt`` must load strictly into a
+    fresh ``raft`` that gives the trained model's flows.  Then
+    ``DeviceCompose`` on the card against the same pipeline on the CPU
+    (one sample, the same draws, one noise field), timed per sample, and 4
+    steps with ``data.train_transform_cuda=true``."""
+    import contextlib
+    import io
+    import random
+
+    import ptlflow_tpu_torch
+    from ptlflow_tpu_torch.data import (FlowDataModule, FlyingChairsDataset,
+                                        dummy_datasets)
+    from ptlflow_tpu_torch.data.device_transforms import DeviceCompose
+    from ptlflow_tpu_torch.ops import correlation as corr
+    from ptlflow_tpu_torch.scripts import train as train_script
+    from ptlflow_tpu_torch.utils.ckpt import load_checkpoint
+
+    t0 = time.perf_counter()
+    root = dummy_datasets.write_flying_chairs(
+        os.path.join(work, "data"), n=CHAIRS_PAIRS, size=(CHAIRS_H, CHAIRS_W),
+        seed=9)
+    ds_cfg = os.path.join(work, "datasets.yaml")
+    with open(ds_cfg, "w") as f:
+        f.write(f"flying_chairs: {root}\n")
+    write_s = time.perf_counter() - t0
+    dm = FlowDataModule(dataset_config_path=ds_cfg,
+                        train_dataset="chairs-train", val_dataset="chairs-val")
+    dm.setup("fit")
+    n_train, n_val = len(dm.train_data), len(dm.val_data[0])
+    if n_train < TRAIN_B or n_val < 1:
+        raise AssertionError(f"chairs-train {n_train}, chairs-val {n_val}: "
+                             f"too few pairs")
+
+    # the launches of each step, counted around the script's train step
+    per_step = []
+    build = train_script.build_train_step
+
+    def counting_build(model, tx, mesh=None):
+        step = build(model, tx, mesh)
+
+        def counted(state, batch):
+            before = (corr.corr_lookup_kernel.launches,
+                      corr.corr_lookup_backward_kernel.launches)
+            out = step(state, batch)
+            per_step.append((corr.corr_lookup_kernel.launches - before[0],
+                             corr.corr_lookup_backward_kernel.launches
+                             - before[1]))
+            return out
+        return counted
+
+    def run(argv, timings=None):
+        text = io.StringIO()
+        corr.corr_lookup_kernel.launches = 0
+        corr.corr_lookup_backward_kernel.launches = 0
+        first = len(per_step)
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            out = train_script.train(train_script._parse_args(argv), timings)
+        seconds = time.perf_counter() - t1
+        launches = (corr.corr_lookup_kernel.launches,
+                    corr.corr_lookup_backward_kernel.launches)
+        for line in text.getvalue().splitlines():
+            log(f"[9 train_cli]   {line}")
+        steps = per_step[first:]
+        if any(s != (ITERS, ITERS) for s in steps):
+            raise AssertionError(f"train steps launched {steps}, not "
+                                 f"{ITERS} of each kernel")
+        if not all(math.isfinite(v) for v in out["losses"]):
+            raise AssertionError(f"non-finite losses {out['losses']}")
+        return out, text.getvalue(), launches, len(steps), seconds
+
+    ckpt_dir = os.path.join(work, "ckpt")
+    base = ["--config", os.path.join(HERE, RAFT_CHAIRS_CONFIG),
+            "--ckpt_dir", ckpt_dir, "--log_every_n_steps", "1",
+            "--val_every_n_steps", str(CLI_VAL_EVERY)]
+    data_set = ["--set", f"data.dataset_config_path={ds_cfg}"]
+    train_script.build_train_step = counting_build
+    try:
+        timings = {}
+        first, _, launches, n_steps, first_s = run(
+            base + data_set + ["--max_steps", str(CLI_STEPS)], timings)
+        n_vals = CLI_STEPS // CLI_VAL_EVERY
+        want = (ITERS * (CLI_STEPS + n_vals * n_val), ITERS * CLI_STEPS)
+        if n_steps != CLI_STEPS or launches != want:
+            raise AssertionError(f"{n_steps} steps and {launches} launches "
+                                 f"(lookup, backward), not {CLI_STEPS} and "
+                                 f"{want}")
+        resumed_timings = {}
+        resumed, text, resumed_launches, n_resumed, resumed_s = run(
+            base + data_set + ["--max_steps", str(CLI_RESUMED), "--resume"],
+            resumed_timings)
+        if (f"at step {CLI_STEPS}" not in text
+                or n_resumed != CLI_RESUMED - CLI_STEPS
+                or resumed["steps"] != CLI_RESUMED):
+            raise AssertionError(f"the resumed run did not pick up at step "
+                                 f"{CLI_STEPS}: {n_resumed} steps")
+
+        # last.ckpt, strictly into a fresh raft: the trained model's flows
+        model = resumed["model"]
+        fresh = ptlflow_tpu_torch.get_model(
+            "raft", args={"iters": ITERS, "corr_levels": 4, "corr_radius": 4,
+                          "gamma": 0.8, "max_flow": 400.0})
+        saved = load_checkpoint(os.path.join(ckpt_dir, "raft", "last.ckpt"))
+        fresh.load_state_dict(saved["state_dict"], strict=True)
+        images = torch.from_numpy(dm.val_data[0][0]["images"][None]).to(dev)
+        with torch.no_grad():
+            ckpt_err = (fresh({"images": images})["flows"]
+                        - model({"images": images})["flows"]).abs().max()
+        ckpt_err = ckpt_err.item()
+        if ckpt_err != 0.0:
+            raise AssertionError(f"last.ckpt's flows differ from the trained "
+                                 f"model's by {ckpt_err} px")
+        del fresh, model, first, resumed
+
+        # DeviceCompose: the datamodule's chairs recipe, card against CPU
+        recipe = FlowDataModule(dataset_config_path=ds_cfg)._get_dataset(
+            True, "chairs", "train").transform
+        card_aug = DeviceCompose.from_compose(recipe, device=dev)
+        cpu_aug = DeviceCompose.from_compose(recipe, device="cpu")
+        cpu_aug.noise_field = lambda like, seed: card_aug.noise_field(
+            like.to(dev), seed).cpu()
+        raw_set = FlyingChairsDataset(str(root), split="train")
+        raw = {k: v for k, v in raw_set[0].items()
+               if isinstance(v, np.ndarray)}
+        random.seed(5)
+        on_card = card_aug(dict(raw))
+        random.seed(5)
+        on_cpu = cpu_aug(dict(raw))
+        aug_err = {k: (on_card[k].cpu() - on_cpu[k]).abs().max().item()
+                   for k in on_cpu}
+        if (aug_err["images"] > ATOL_AUG_IMAGES
+                or aug_err["flows"] > ATOL_AUG_FLOWS_PX
+                or aug_err["valids"] != 0.0):
+            raise AssertionError(f"DeviceCompose card against CPU: {aug_err}")
+        # the numpy path's host cost of one sample, in this process: the
+        # decode alone, then decode and the recipe's transforms
+        decode_ms, host_aug_ms = [], []
+        for k in range(min(5, n_train)):
+            t1 = time.perf_counter()
+            raw_set[k]
+            t2 = time.perf_counter()
+            dm.train_data[k]
+            t3 = time.perf_counter()
+            decode_ms.append((t2 - t1) * 1e3)
+            host_aug_ms.append((t3 - t2) * 1e3)
+        aug_ms = []
+        for k in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            card_aug(dict(raw))
+            end.record()
+            end.synchronize()
+            aug_ms.append(start.elapsed_time(end))
+
+        # the augmentations on the card, in the main process
+        cuda_timings = {}
+        _, _, cuda_launches, n_cuda, cuda_s = run(
+            base + ["--set", f"data.dataset_config_path={ds_cfg}",
+                    "data.train_transform_cuda=true", "--max_steps",
+                    str(CLI_CUDA_STEPS), "--val_every_n_steps", "1000",
+                    "--ckpt_dir", os.path.join(work, "ckpt_cuda")],
+            cuda_timings)
+        if n_cuda != CLI_CUDA_STEPS or cuda_launches != (
+                ITERS * CLI_CUDA_STEPS, ITERS * CLI_CUDA_STEPS):
+            raise AssertionError(f"train_transform_cuda: {n_cuda} steps, "
+                                 f"{cuda_launches} launches")
+    finally:
+        train_script.build_train_step = build
+
+    def med(xs):
+        return float(np.median(xs[1:])) if len(xs) > 1 else float("nan")
+
+    out = {
+        "card": tag, "train_pairs": n_train, "val_pairs": n_val,
+        "write_s": write_s,
+        "ms_per_step": med(timings["step_ms"]),
+        "loader_wait_ms_per_step": med(timings["wait_ms"]),
+        "first_step_ms": timings["step_ms"][0],
+        "first_wait_ms": timings["wait_ms"][0],
+        "step_event_ms": med(timings["step_event_ms"]),
+        "resumed_ms_per_step": med(resumed_timings["step_ms"]),
+        "checkpoint_save_ms": timings["save_ms"],
+        "run_s": first_s, "resumed_run_s": resumed_s,
+        "decode_ms_per_sample": float(np.median(decode_ms)),
+        "numpy_pipeline_ms_per_sample": float(np.median(host_aug_ms)),
+        "device_compose_ms_per_sample": float(np.median(aug_ms)),
+        "device_compose_err": aug_err,
+        "cuda_transform_ms_per_step": med(cuda_timings["step_ms"]),
+        "cuda_transform_wait_ms_per_step": med(cuda_timings["wait_ms"]),
+        "cuda_transform_step_event_ms": med(cuda_timings["step_event_ms"]),
+        "cuda_transform_run_s": cuda_s,
+        "phase6_bare_step_ms": bare_step_ms,
+        "steps": {"run": timings, "resumed": resumed_timings,
+                  "cuda_transform": cuda_timings},
+        "launches": {"run": launches, "resumed": resumed_launches,
+                     "cuda_transform": cuda_launches},
+        "last_ckpt_flow_err_px": ckpt_err,
+    }
+    log(f"[9 train_cli] [{tag}] raft-train1-chairs.yaml ({TRAIN_W}x{TRAIN_H} "
+        f"crops of {CHAIRS_W}x{CHAIRS_H} pairs, batch {TRAIN_B}, {ITERS} "
+        f"iters, 4 workers): {out['ms_per_step']:.3f} ms per step in the "
+        f"loop (host, median of steps 2-{CLI_STEPS}), loader wait "
+        f"{out['loader_wait_ms_per_step']:.3f} ms (first "
+        f"{out['first_wait_ms']:.1f}), the step {out['step_event_ms']:.3f} "
+        f"ms by CUDA events; phase 6's bare step {bare_step_ms:.3f} ms; "
+        f"{launches[0]} lookups ({n_vals} validations of {n_val} pair) and "
+        f"{launches[1]} backward launches; resumed at step {CLI_STEPS}, "
+        f"{out['resumed_ms_per_step']:.3f} ms per step; checkpoints "
+        f"{', '.join(f'{v:.1f}' for v in timings['save_ms'])} ms a "
+        f"validation (host); last.ckpt's flows "
+        f"{ckpt_err} px off; a sample on the host (one process) "
+        f"{out['decode_ms_per_sample']:.1f} ms to decode, "
+        f"{out['numpy_pipeline_ms_per_sample']:.1f} ms to decode and "
+        f"augment; DeviceCompose "
+        f"{out['device_compose_ms_per_sample']:.3f} ms a sample by events, "
+        f"card vs CPU {aug_err}; with "
+        f"train_transform_cuda {out['cuda_transform_ms_per_step']:.3f} ms "
+        f"per step (wait {out['cuda_transform_wait_ms_per_step']:.3f} ms, "
+        f"step {out['cuda_transform_step_event_ms']:.3f} ms by events)")
+    return out
 
 
 def profile_forward(torch, model, images, label: str, tag: str,

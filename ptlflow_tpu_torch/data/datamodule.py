@@ -1,15 +1,20 @@
 """FlowDataModule (``ptlflow_tpu/data/datamodule.py``): the dataset-selection
-mini-language and the validate and test stages.
+mini-language and the canonical training recipes.
 
-- selection strings like "sintel-clean-trainval+kitti-2015-trainval"
+- selection strings like
+  "chairs-train+3*sintel-clean-trainval+kitti-2015-train*5"
   (``parse_dataset_selection``);
+- per-dataset factories encode the canonical RAFT-style augmentation recipes
+  and crop sizes, including the ``sintel_finetune`` mixture and the
+  single-sample ``overfit`` set;
 - dataset roots from ``datasets.yaml`` (read without PyYAML), overridable
   per dataset with ``<key>_root_dir``;
-- validation and test loaders run batch 1 over un-augmented samples.
-
-Training datasets need the augmentations of ``ptlflow_tpu/data/
-transforms.py`` and ``device_transforms.py``, which the port does not have
-yet: selecting one raises ``NotImplementedError``.
+- the train loader shuffles and batches numpy dicts (a torch ``DataLoader``
+  with ``numpy_collate`` when ``train_num_workers > 0``, else
+  ``SimpleLoader`` in the main process); with ``train_transform_cuda`` the
+  augmentations run on the card (``device_transforms.DeviceCompose``) in
+  the main process; validation and test loaders run batch 1 over
+  un-augmented samples.
 """
 
 from __future__ import annotations
@@ -20,29 +25,31 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+from torch.utils.data import DataLoader
 
 from ..utils import yaml_subset
+from . import transforms as ft
 from .datasets import (
-    AutoFlowDataset, FlyingChairsDataset, FlyingChairs2Dataset,
-    FlyingThings3DDataset, FlyingThings3DSubsetDataset, Hd1kDataset,
-    KittiDataset, KubricDataset, MiddleburyDataset, MiddleburySTDataset,
-    MonkaaDataset, SintelDataset, SpringDataset, TartanAirDataset,
-    ViperDataset,
+    BaseFlowDataset, AutoFlowDataset, FlyingChairsDataset,
+    FlyingChairs2Dataset, FlyingThings3DDataset,
+    FlyingThings3DSubsetDataset, Hd1kDataset, KittiDataset, KubricDataset,
+    MiddleburyDataset, MiddleburySTDataset, MonkaaDataset, SintelDataset,
+    SpringDataset, TartanAirDataset, ViperDataset,
 )
-
-_NO_TRAINING = ("training datasets need the augmentations of "
-                "ptlflow_tpu/data/transforms.py, which the PyTorch port does "
-                "not have yet (ROADMAP, queue 1, item 1)")
 
 
 def make_divisible(v: int, div: int) -> int:
-    """Round ``v`` up to a multiple of ``div``."""
+    """Reference utils.make_divisible (utils.py:291): round up to multiple."""
     if div <= 1:
         return v
     return max(div, int(math.ceil(v / div)) * div)
 
 
 def numpy_collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Stack a list of samples: numpy arrays with ``np.stack``, tensors
+    (``DeviceCompose``'s output, on the card) with ``torch.stack``, and
+    ``meta`` into lists."""
     out: Dict[str, Any] = {}
     for k in samples[0]:
         if k == "meta":
@@ -50,6 +57,8 @@ def numpy_collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
                 mk: [s["meta"].get(mk) for s in samples]
                 for mk in samples[0]["meta"]
             }
+        elif isinstance(samples[0][k], torch.Tensor):
+            out[k] = torch.stack([s[k] for s in samples])
         else:
             out[k] = np.stack([s[k] for s in samples])
     return out
@@ -131,13 +140,13 @@ class FlowDataModule:
                  **root_dir_overrides):
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
+        self.train_transform_cuda = train_transform_cuda
+        self.train_transform_fp16 = train_transform_fp16
         self.test_dataset = test_dataset
         self.predict_dataset = predict_dataset
         self.train_batch_size = train_batch_size
         self.train_num_workers = train_num_workers
         self.train_crop_size = train_crop_size
-        self.train_transform_cuda = train_transform_cuda
-        self.train_transform_fp16 = train_transform_fp16
         self.dataset_config_path = dataset_config_path
         self.output_stride = output_stride
 
@@ -167,7 +176,7 @@ class FlowDataModule:
     @staticmethod
     def parse_dataset_selection(dataset_selection: str):
         """'chairs-train+3*sintel-clean' -> [(1,'chairs','train'),
-        (3,'sintel','clean')]."""
+        (3,'sintel','clean')] (flow_datamodule.py:254-302)."""
         if dataset_selection is None:
             return []
         dataset_selection = dataset_selection.replace(" ", "")
@@ -189,7 +198,13 @@ class FlowDataModule:
     # ----------------------------------------------------------------- setup
     def setup(self, stage: Optional[str] = None):
         if stage in (None, "fit") and self.train_dataset is not None:
-            raise NotImplementedError(_NO_TRAINING)
+            parts = []
+            for sel in self.parse_dataset_selection(self.train_dataset):
+                mult, name, *args = sel
+                ds = self._get_dataset(True, name, *args)
+                parts.append(RepeatedDataset(ds, mult) if mult > 1 else ds)
+            self.train_data = parts[0] if len(parts) == 1 \
+                else ConcatDataset(parts)
         if stage in (None, "fit", "validate") and self.val_dataset is not None:
             self.val_data = []
             self.val_dataset_names = []
@@ -207,7 +222,30 @@ class FlowDataModule:
 
     # --------------------------------------------------------------- loaders
     def train_dataloader(self):
-        raise NotImplementedError(_NO_TRAINING)
+        """Shuffled batches of ``train_batch_size``, the last partial one
+        dropped: a torch ``DataLoader`` whose workers (persistent, started
+        by ``spawn``: this process may hold threads, which ``fork`` does not
+        carry over safely) decode and augment, or, with no workers,
+        ``SimpleLoader`` in this process."""
+        if self.train_data is None:
+            raise RuntimeError("train_dataloader() needs setup('fit') with "
+                               "a train_dataset")
+        if self.train_transform_cuda:
+            # the card's transform runs in the main process: worker
+            # processes must not touch the card (the reference pins workers
+            # too, flow_datamodule.py:208-216)
+            if self.train_num_workers:
+                print("train_transform_cuda: forcing train_num_workers=0")
+            self.train_num_workers = 0
+        if self.train_num_workers and self.train_num_workers > 0:
+            return DataLoader(
+                self.train_data, batch_size=self.train_batch_size,
+                shuffle=True, num_workers=self.train_num_workers,
+                collate_fn=numpy_collate, drop_last=True,
+                persistent_workers=True, multiprocessing_context="spawn")
+        return SimpleLoader(self.train_data,
+                            batch_size=self.train_batch_size, shuffle=True,
+                            drop_last=True)
 
     def val_dataloader(self):
         return [SimpleLoader(d, batch_size=1) for d in self.val_data]
@@ -217,12 +255,36 @@ class FlowDataModule:
 
     # ------------------------------------------------------------- factories
     def _get_dataset(self, is_train: bool, name: str, *args) -> Any:
-        if is_train or name in ("sintel_finetune", "overfit"):
-            raise NotImplementedError(f"dataset '{name}': {_NO_TRAINING}")
         fn = getattr(self, f"_get_{name}_dataset", None)
         if fn is None:
             raise ValueError(f"unknown dataset '{name}'")
-        return fn(*args)
+        ds = fn(is_train, *args)
+        if (is_train and self.train_transform_cuda
+                and isinstance(getattr(ds, "transform", None), ft.Compose)):
+            # the reference's train_transform_cuda (flow_datamodule.py:318):
+            # the whole Compose as torch ops on the card; pipelines with no
+            # device form (sparse scatter resize) keep the numpy path
+            from .device_transforms import DeviceCompose
+
+            max_frames = max(2, int(getattr(ds, "sequence_length", 2) or 2))
+            out_dtype = torch.bfloat16 if self.train_transform_fp16 else None
+            dev = DeviceCompose.from_compose(ds.transform,
+                                             max_frames=max_frames,
+                                             out_dtype=out_dtype)
+            if dev is not None:
+                ds.transform = dev
+            else:
+                print(f"[{name}] train_transform_cuda: pipeline has no "
+                      f"device equivalent (sparse resize); using numpy")
+        return ds
+
+    def _crop(self, default_hw: Tuple[int, int]) -> Tuple[int, int]:
+        md = make_divisible
+        if self.train_crop_size is None:
+            return (md(default_hw[0], self.output_stride),
+                    md(default_hw[1], self.output_stride))
+        return (md(self.train_crop_size[0], self.output_stride),
+                md(self.train_crop_size[1], self.output_stride))
 
     @staticmethod
     def _seq_args(args):
@@ -237,15 +299,27 @@ class FlowDataModule:
                 rest.append(v)
         return kw, rest
 
-    # the JAX package's factories with transform=None (is_train False)
-    def _get_chairs_dataset(self, *args):
+    # RAFT-style canonical recipes (flow_datamodule.py factories)
+    def _get_chairs_dataset(self, is_train: bool, *args):
         split = "trainval"
         for v in args:
             if v in ("train", "val", "trainval"):
                 split = v
-        return FlyingChairsDataset(self.flying_chairs_root_dir, split=split)
+        if is_train:
+            cy, cx = self._crop((368, 496))
+            transform = ft.Compose([
+                ft.RandomScaleAndCrop((cy, cx), (-0.1, 1.0), (-0.2, 0.2)),
+                ft.ColorJitter(0.4, 0.4, 0.4, 0.5 / 3.14, 0.2),
+                ft.GaussianNoise(0.02),
+                ft.RandomPatchEraser(0.5, ((50, 100), (50, 100)), 3, "mean"),
+                ft.RandomFlip(0.5, 0.1),
+            ])
+        else:
+            transform = None
+        return FlyingChairsDataset(self.flying_chairs_root_dir, split=split,
+                                   transform=transform)
 
-    def _get_chairs2_dataset(self, *args):
+    def _get_chairs2_dataset(self, is_train: bool, *args):
         split = "train"
         add_occ = False
         for v in args:
@@ -253,12 +327,23 @@ class FlowDataModule:
                 split = v
             elif v == "occ":
                 add_occ = True
+        if is_train:
+            cy, cx = self._crop((368, 496))
+            transform = ft.Compose([
+                ft.RandomScaleAndCrop((cy, cx), (-0.1, 1.0), (-0.2, 0.2)),
+                ft.ColorJitter(0.4, 0.4, 0.4, 0.5 / 3.14, 0.2),
+                ft.GaussianNoise(0.02),
+                ft.RandomPatchEraser(0.5, ((50, 100), (50, 100)), 3, "mean"),
+                ft.RandomFlip(0.5, 0.1),
+            ])
+        else:
+            transform = None
         return FlyingChairs2Dataset(
-            self.flying_chairs2_root_dir, split=split,
+            self.flying_chairs2_root_dir, split=split, transform=transform,
             get_occlusion_mask=add_occ, get_motion_boundary_mask=add_occ,
             get_backward=add_occ)
 
-    def _get_things_dataset(self, *args):
+    def _get_things_dataset(self, is_train: bool, *args):
         pass_names = ["clean", "final"]
         split = "train"
         side_names = ["left", "right"]
@@ -270,11 +355,22 @@ class FlowDataModule:
                 split = v
             elif v in ("left", "right"):
                 side_names = [v]
+        if is_train:
+            cy, cx = self._crop((400, 720))
+            transform = ft.Compose([
+                ft.RandomScaleAndCrop((cy, cx), (-0.4, 0.8), (-0.2, 0.2)),
+                ft.ColorJitter(0.4, 0.4, 0.4, 0.5 / 3.14, 0.2),
+                ft.GaussianNoise(0.02),
+                ft.RandomPatchEraser(0.5, ((50, 100), (50, 100)), 3, "mean"),
+                ft.RandomFlip(0.5, 0.1),
+            ])
+        else:
+            transform = None
         return FlyingThings3DDataset(
             self.flying_things3d_root_dir, split=split, pass_names=pass_names,
-            side_names=side_names, **seq_kw)
+            side_names=side_names, transform=transform, **seq_kw)
 
-    def _get_sintel_dataset(self, *args):
+    def _get_sintel_dataset(self, is_train: bool, *args):
         pass_names = ["clean", "final"]
         split = "trainval"
         get_occ = False
@@ -286,11 +382,22 @@ class FlowDataModule:
                 split = v
             elif v == "occ":
                 get_occ = True
+        if is_train:
+            cy, cx = self._crop((368, 768))
+            transform = ft.Compose([
+                ft.RandomScaleAndCrop((cy, cx), (-0.2, 0.6), (-0.2, 0.2)),
+                ft.ColorJitter(0.4, 0.4, 0.4, 0.5 / 3.14, 0.2),
+                ft.GaussianNoise(0.02),
+                ft.RandomPatchEraser(0.5, ((50, 100), (50, 100)), 3, "mean"),
+                ft.RandomFlip(0.5, 0.1),
+            ])
+        else:
+            transform = None
         return SintelDataset(
             self.mpi_sintel_root_dir, split=split, pass_names=pass_names,
-            get_occlusion_mask=get_occ, **seq_kw)
+            transform=transform, get_occlusion_mask=get_occ, **seq_kw)
 
-    def _get_kitti_dataset(self, *args):
+    def _get_kitti_dataset(self, is_train: bool, *args):
         versions = ["2012", "2015"]
         split = "trainval"
         for v in args:
@@ -298,19 +405,44 @@ class FlowDataModule:
                 versions = [v]
             elif v in ("train", "val", "trainval", "test"):
                 split = v
+        if is_train:
+            cy, cx = self._crop((288, 960))
+            transform = ft.Compose([
+                ft.RandomScaleAndCrop((cy, cx), (-0.2, 0.4), (-0.2, 0.2),
+                                      sparse=True),
+                ft.ColorJitter(0.4, 0.4, 0.4, 0.5 / 3.14, 0.0),
+                ft.GaussianNoise(0.02),
+                ft.RandomPatchEraser(0.5, ((50, 100), (50, 100)), 3, "mean"),
+                ft.RandomFlip(0.5, 0.0),
+            ])
+        else:
+            transform = None
         return KittiDataset(
             self.kitti_2012_root_dir, self.kitti_2015_root_dir,
-            versions=versions, split=split)
+            versions=versions, split=split, transform=transform)
 
-    def _get_hd1k_dataset(self, *args):
+    def _get_hd1k_dataset(self, is_train: bool, *args):
         seq_kw, rest = self._seq_args(args)
         split = "trainval"
         for v in rest:
             if v in ("train", "val", "trainval", "test"):
                 split = v
-        return Hd1kDataset(self.hd1k_root_dir, split=split, **seq_kw)
+        if is_train:
+            cy, cx = self._crop((368, 768))
+            transform = ft.Compose([
+                ft.RandomScaleAndCrop((cy, cx), (-0.5, 0.2), (-0.2, 0.2),
+                                      sparse=True),
+                ft.ColorJitter(0.4, 0.4, 0.4, 0.5 / 3.14, 0.0),
+                ft.GaussianNoise(0.02),
+                ft.RandomPatchEraser(0.5, ((50, 100), (50, 100)), 3, "mean"),
+                ft.RandomFlip(0.5, 0.0),
+            ])
+        else:
+            transform = None
+        return Hd1kDataset(self.hd1k_root_dir, split=split,
+                           transform=transform, **seq_kw)
 
-    def _get_spring_dataset(self, *args):
+    def _get_spring_dataset(self, is_train: bool, *args):
         seq_kw, rest = self._seq_args(args)
         split = "train"
         side_names = ["left"]
@@ -322,21 +454,44 @@ class FlowDataModule:
                 side_names = [v]
             elif v == "4k":
                 subsample = False
+        if is_train:
+            cy, cx = self._crop((368, 768))
+            transform = ft.Compose([
+                ft.RandomScaleAndCrop((cy, cx), (-0.2, 0.6), (-0.2, 0.2)),
+                ft.ColorJitter(0.4, 0.4, 0.4, 0.5 / 3.14, 0.2),
+                ft.GaussianNoise(0.02),
+                ft.RandomPatchEraser(0.5, ((50, 100), (50, 100)), 3, "mean"),
+                ft.RandomFlip(0.5, 0.1),
+            ])
+        else:
+            transform = None
         return SpringDataset(self.spring_root_dir, split=split,
-                             side_names=side_names, subsample=subsample,
-                             **seq_kw)
+                             side_names=side_names, transform=transform,
+                             subsample=subsample, **seq_kw)
 
-    def _get_middlebury_dataset(self, *args):
+    def _get_middlebury_dataset(self, is_train: bool, *args):
         return MiddleburyDataset(self.middlebury_root_dir)
 
-    def _get_autoflow_dataset(self, *args):
+    def _get_autoflow_dataset(self, is_train: bool, *args):
         split = "trainval"
         for v in args:
             if v in ("train", "val", "trainval"):
                 split = v
-        return AutoFlowDataset(self.autoflow_root_dir, split=split)
+        if is_train:
+            cy, cx = self._crop((368, 496))
+            transform = ft.Compose([
+                ft.RandomScaleAndCrop((cy, cx), (-0.1, 1.0), (-0.2, 0.2)),
+                ft.ColorJitter(0.4, 0.4, 0.4, 0.5 / 3.14, 0.2),
+                ft.GaussianNoise(0.02),
+                ft.RandomPatchEraser(0.5, ((50, 100), (50, 100)), 3, "mean"),
+                ft.RandomFlip(0.5, 0.1),
+            ])
+        else:
+            transform = None
+        return AutoFlowDataset(self.autoflow_root_dir, split=split,
+                               transform=transform)
 
-    def _get_things_subset_dataset(self, *args):
+    def _get_things_subset_dataset(self, is_train: bool, *args):
         pass_names = ["clean"]
         split = "train"
         seq_kw, rest = self._seq_args(args)
@@ -345,17 +500,37 @@ class FlowDataModule:
                 pass_names = [v]
             elif v in ("train", "val", "trainval"):
                 split = v
+        if is_train:
+            cy, cx = self._crop((400, 720))
+            transform = ft.Compose([
+                ft.RandomScaleAndCrop((cy, cx), (-0.4, 0.8), (-0.2, 0.2)),
+                ft.ColorJitter(0.4, 0.4, 0.4, 0.5 / 3.14, 0.2),
+                ft.GaussianNoise(0.02),
+                ft.RandomPatchEraser(0.5, ((50, 100), (50, 100)), 3, "mean"),
+                ft.RandomFlip(0.5, 0.1),
+            ])
+        else:
+            transform = None
         return FlyingThings3DSubsetDataset(
             self.flying_things3d_subset_root_dir, split=split,
-            pass_names=pass_names, **seq_kw)
+            pass_names=pass_names, transform=transform, **seq_kw)
 
-    def _get_tartanair_dataset(self, *args):
+    def _get_tartanair_dataset(self, is_train: bool, *args):
         seq_kw, rest = self._seq_args(args)
         difficulties = [v for v in rest if v in ("Easy", "Hard")] or ["Easy"]
+        transform = None
+        if is_train:
+            cy, cx = self._crop((360, 480))
+            transform = ft.Compose([
+                ft.RandomScaleAndCrop((cy, cx), (-0.2, 0.6), (-0.2, 0.2)),
+                ft.ColorJitter(0.4, 0.4, 0.4, 0.5 / 3.14, 0.2),
+                ft.RandomFlip(0.5, 0.1),
+            ])
         return TartanAirDataset(self.tartanair_root_dir,
-                                difficulties=difficulties, **seq_kw)
+                                difficulties=difficulties,
+                                transform=transform, **seq_kw)
 
-    def _get_kubric_dataset(self, *args):
+    def _get_kubric_dataset(self, is_train: bool, *args):
         seq_kw, rest = self._seq_args(args)
         get_backward = "back" in rest
         max_seq = None
@@ -365,19 +540,104 @@ class FlowDataModule:
         return KubricDataset(self.kubric_root_dir, get_backward=get_backward,
                              max_seq=max_seq, **seq_kw)
 
-    def _get_monkaa_dataset(self, *args):
+    def _get_monkaa_dataset(self, is_train: bool, *args):
         seq_kw, rest = self._seq_args(args)
         pass_names = [v for v in rest if v in ("clean", "final")] or ["clean"]
         side_names = [v for v in rest if v in ("left", "right")] or ["left"]
         return MonkaaDataset(self.monkaa_root_dir, pass_names=pass_names,
                              side_names=side_names, **seq_kw)
 
-    def _get_middlebury_st_dataset(self, *args):
+    def _get_middlebury_st_dataset(self, is_train: bool, *args):
         return MiddleburySTDataset(self.middlebury_st_root_dir)
 
-    def _get_viper_dataset(self, *args):
+    def _get_viper_dataset(self, is_train: bool, *args):
         split = "train"
         for v in args:
             if v in ("train", "val", "test"):
                 split = v
         return ViperDataset(self.viper_root_dir, split=split)
+
+    def _get_sintel_finetune_dataset(self, is_train: bool, *args):
+        """The canonical RAFT sintel-finetune mixture
+        (flow_datamodule.py:756-935): things(clean) + sintel-clean*M +
+        sintel-final*M + kitti2015*K + hd1k*H, where (M, K, H) =
+        (100, 200, 5) by default or (20, 80, 30) with the ``searaft_split``
+        arg (SEA-RAFT's TSKH mixture).  ``fbocc`` appends the
+        forward-backward occlusion-check transform, as in the reference.
+
+        Note: the reference's dpflow-train3 config selects
+        ``sintel-searaft_split``, which its own ``_get_sintel_dataset``
+        rejects (flow_datamodule.py:693-706 ``raise ValueError``); the
+        working selector is ``sintel_finetune-searaft_split``.
+        """
+        if not is_train:
+            raise ValueError("sintel_finetune is a training mixture")
+        fbocc = False
+        searaft = False
+        for v in args:
+            if v == "fbocc":
+                fbocc = True
+            elif v == "searaft_split":
+                searaft = True
+            else:
+                raise ValueError(f"Invalid arg: {v}")
+
+        cy, cx = self._crop((368, 768))
+        fb = [ft.GenerateFBCheckFlowOcclusion(threshold=1)] if fbocc else []
+        # Dense parts (things + both sintel passes); no GaussianNoise in the
+        # finetune recipe (flow_datamodule.py:788-803).
+        transform1 = ft.Compose([
+            ft.RandomScaleAndCrop((cy, cx), (-0.2, 0.6), (-0.2, 0.2)),
+            ft.ColorJitter(0.4, 0.4, 0.4, 0.5 / 3.14, 0.2),
+            ft.RandomPatchEraser(0.5, ((50, 100), (50, 100)), 3, "mean"),
+            ft.RandomFlip(0.5, 0.1),
+        ] + fb)
+        transform2 = ft.Compose([
+            ft.RandomScaleAndCrop((cy, cx), (-0.3, 0.5), (-0.2, 0.2),
+                                  sparse=True),
+            ft.ColorJitter(0.4, 0.4, 0.4, 0.5 / 3.14, 0.2),
+            ft.RandomPatchEraser(0.5, ((50, 100), (50, 100)), 3, "mean"),
+            ft.RandomFlip(0.5, 0.1),
+        ] + fb)
+        transform3 = ft.Compose([
+            ft.RandomScaleAndCrop((cy, cx), (-0.5, 0.2), (-0.2, 0.2),
+                                  sparse=True),
+            ft.ColorJitter(0.4, 0.4, 0.4, 0.5 / 3.14, 0.2),
+            ft.RandomPatchEraser(0.5, ((50, 100), (50, 100)), 3, "mean"),
+            ft.RandomFlip(0.5, 0.1),
+        ] + fb)
+
+        things = FlyingThings3DDataset(
+            self.flying_things3d_root_dir, split="train",
+            pass_names=["clean"], side_names=["left"], transform=transform1)
+        sintel_clean = SintelDataset(
+            self.mpi_sintel_root_dir, split="trainval", pass_names=["clean"],
+            transform=transform1)
+        sintel_final = SintelDataset(
+            self.mpi_sintel_root_dir, split="trainval", pass_names=["final"],
+            transform=transform1)
+        kitti = KittiDataset(
+            self.kitti_2012_root_dir, self.kitti_2015_root_dir,
+            versions=["2015"], split="trainval", transform=transform2)
+        hd1k = Hd1kDataset(self.hd1k_root_dir, split="trainval",
+                           transform=transform3)
+        parts = [
+            things,
+            RepeatedDataset(sintel_clean, 20 if searaft else 100),
+            RepeatedDataset(sintel_final, 20 if searaft else 100),
+            RepeatedDataset(kitti, 80 if searaft else 200),
+            RepeatedDataset(hd1k, 30 if searaft else 5),
+        ]
+        usable = [p for p in parts if len(p) > 0]
+        return ConcatDataset(usable)
+
+    def _get_overfit_dataset(self, is_train: bool, *args):
+        """Single-sample overfit set (flow_datamodule.py:1233-1283)."""
+        dataset = self._get_sintel_dataset(False, "clean", "trainval")
+        cy, cx = self._crop((436, 1024))
+        transform = ft.Resize((cy, cx))
+        dataset.transform = transform
+        dataset.img_paths = dataset.img_paths[:1]
+        dataset.flow_paths = dataset.flow_paths[:1]
+        dataset.metadata = dataset.metadata[:1]
+        return dataset

@@ -4,8 +4,8 @@ from .correlation import (build_corr_pyramid, coords_grid,  # noqa: F401
                           corr_pyramid_lookup,
                           corr_pyramid_lookup_backward_plain,
                           corr_pyramid_lookup_plain, make_corr_lookup)
-from .grid_sample import interpolate  # noqa: F401
+from .grid_sample import bilinear_sampler, interpolate  # noqa: F401
 from .resize import InputPadder, InputScaler  # noqa: F401
 from .upsample import (convex_upsample, convex_upsample_data,  # noqa: F401
                        upflow)
-from .warp import forward_interpolate  # noqa: F401
+from .warp import backward_warp, fb_check, forward_interpolate  # noqa: F401

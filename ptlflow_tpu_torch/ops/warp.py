@@ -1,5 +1,7 @@
-"""Forward projection of a flow field for RAFT's warm start
-(``ptlflow_tpu/ops/warp.py::forward_interpolate``), NCHW."""
+"""Warping ops of ``ptlflow_tpu/ops/warp.py``, NCHW: ``backward_warp`` and
+the forward-backward occlusion check ``fb_check`` (the augmentations'
+``GenerateFBCheckFlowOcclusion``), and the forward projection of a flow
+field for RAFT's warm start (``forward_interpolate``)."""
 
 from __future__ import annotations
 
@@ -7,6 +9,30 @@ import torch
 import torch.nn.functional as F
 
 from .correlation import coords_grid
+from .grid_sample import bilinear_sampler
+
+
+def backward_warp(img: torch.Tensor, flow: torch.Tensor,
+                  return_mask: bool = False):
+    """Sample ``img`` (B, C, H, W) at (grid + ``flow``), flow (B, 2, H, W);
+    with ``return_mask`` also the (B, 1, H, W) in-frame mask of
+    ``bilinear_sampler``."""
+    b, _, h, w = flow.shape
+    coords = coords_grid(b, h, w, dtype=flow.dtype, device=flow.device) + flow
+    return bilinear_sampler(img, coords, mask=return_mask)
+
+
+def fb_check(flow_fw: torch.Tensor, flow_bw: torch.Tensor,
+             alpha_1: float = 0.01, alpha_2: float = 0.5) -> torch.Tensor:
+    """Forward-backward consistency check: (B, 1, H, W), 1 where
+    |fw + bw(warped)|^2 exceeds alpha_1 * (|fw|^2 + |bw_warped|^2) +
+    alpha_2 (an occlusion), else 0."""
+    bw_warped = backward_warp(flow_bw, flow_fw)
+    diff = flow_fw + bw_warped
+    mag_sq = (flow_fw ** 2).sum(1, keepdim=True) + \
+        (bw_warped ** 2).sum(1, keepdim=True)
+    occ = (diff ** 2).sum(1, keepdim=True) > alpha_1 * mag_sq + alpha_2
+    return occ.to(flow_fw.dtype)
 
 
 def _box3_sum(x: torch.Tensor) -> torch.Tensor:

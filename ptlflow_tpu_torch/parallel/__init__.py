@@ -3,4 +3,5 @@ step of ``ptlflow_tpu/parallel/train.py``, on one device."""
 
 from .train import (AdamW, AdamWState, TrainState,  # noqa: F401
                     build_train_step, create_train_state, global_norm,
-                    loss_and_grads, make_optimizer, onecycle_linear)
+                    load_optimizer_state, loss_and_grads, make_optimizer,
+                    onecycle_linear, optimizer_state_dict)

@@ -16,16 +16,27 @@ _IGNORED_PREFIXES = ("loss_fn.", "train_metrics.", "val_metrics.",
                      "test_metrics.")
 
 
+def load_checkpoint(path: str) -> Any:
+    """The object a torch/Lightning .ckpt/.pth file holds, on the CPU."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        # Lightning checkpoints pickle their hyper-parameters; the file is
+        # one the caller named
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+
 def load_torch_state_dict(path: str) -> Tuple[Dict[str, torch.Tensor],
                                               Dict[str, Any]]:
     """Load a torch/Lightning .ckpt/.pth file on the CPU ->
     (state_dict, hyper_parameters)."""
-    try:
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    except pickle.UnpicklingError:
-        # Lightning checkpoints pickle their hyper-parameters; the file is
-        # one the caller named
-        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return split_checkpoint(load_checkpoint(path))
+
+
+def split_checkpoint(ckpt: Any) -> Tuple[Dict[str, torch.Tensor],
+                                         Dict[str, Any]]:
+    """(state_dict, hyper_parameters) of a loaded checkpoint, without the
+    keys of the Lightning harness."""
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         state = ckpt["state_dict"]
         hparams = ckpt.get("hyper_parameters", {}) or {}

@@ -17,6 +17,11 @@ from . import yaml_subset
 
 
 def parse_value(v: str) -> Any:
+    """A ``--set`` value: a Python literal, YAML's ``true``/``false``/``null``
+    (any case), else the string itself."""
+    words = {"true": True, "false": False, "null": None, "none": None}
+    if v.lower() in words:
+        return words[v.lower()]
     try:
         return ast.literal_eval(v)
     except (ValueError, SyntaxError):
@@ -45,7 +50,8 @@ def parse_with_config(parser: argparse.ArgumentParser,
                       argv=None) -> argparse.Namespace:
     """Parse CLI args with CLI > ``--config`` YAML > parser default:
     top-level keys of the YAML fill any argument the user left at its
-    default."""
+    default, except the mappings (``model:``, ``data:``, ``trainer:``),
+    which are config trees for ``load_config``."""
     args = parser.parse_args(argv)
     if getattr(args, "config", None):
         cfg = yaml_subset.load(args.config) or {}
@@ -56,7 +62,8 @@ def parse_with_config(parser: argparse.ArgumentParser,
             d = action.dest
             if d in ("help", "config", "set") or d not in cfg:
                 continue
-            if d not in passed and cfg[d] is not None:
+            if d not in passed and cfg[d] is not None \
+                    and not isinstance(cfg[d], dict):
                 setattr(args, d, cfg[d])
     return args
 
@@ -107,6 +114,11 @@ def model_from_args(args: argparse.Namespace, cfg: Dict[str, Any],
 
 def datamodule_from_cfg(cfg: Dict[str, Any], output_stride: int = 8,
                         **overrides):
+    """The config's ``data`` tree as a ``FlowDataModule``, updated by the
+    ``overrides`` that are not None: the scripts' dataset selections and
+    the training flags (``train_batch_size``, ``train_crop_size``,
+    ``train_num_workers``).  ``train_transform_cuda`` and
+    ``train_transform_fp16`` come through ``--set data.<key>=true``."""
     from ..data import FlowDataModule
 
     data_cfg = dict(cfg.get("data", {}))

@@ -20,6 +20,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+
+from tests._torch_threads import cap_torch_threads  # noqa: F401
 import yaml
 
 import jax.numpy as jnp
@@ -129,8 +131,14 @@ def test_datamodule_validate_stage_matches_jax(jax_trees, tmp_path):
     assert tmod.test_dataset_names == jmod.test_dataset_names
     assert ([len(d) for d in tmod.val_data + tmod.test_data]
             == [len(d) for d in jmod.val_data + jmod.test_data])
-    with pytest.raises(NotImplementedError, match="augmentations"):
-        tdm.FlowDataModule(train_dataset="chairs").setup("fit")
+    # the fit stage builds the training recipe of the same selection
+    fit = []
+    for pkg in (jdm, tdm):
+        dm = pkg.FlowDataModule(train_dataset="chairs-train+2*sintel-clean",
+                                dataset_config_path=str(cfg))
+        dm.setup("fit")
+        fit.append(dm.train_data)
+    assert len(fit[1]) == len(fit[0]) > 0
 
 
 YAML_FILES = sorted(
@@ -392,22 +400,29 @@ def test_entry_points_default_to_the_card(port_tree):
             call()
 
 
-BLOCKED = ("cv2", "yaml", "PIL", "h5py", "jax")
+BLOCKED = ("cv2", "yaml", "PIL", "h5py", "jax", "optax", "tensorboard")
 
 
 def test_harness_runs_without_cv2_yaml_pil_h5py_or_jax(tmp_path):
     """A PyTorch install without those packages: in a fresh interpreter
-    where importing any of them fails, the port's data, IO, metrics, CLI and scripts
-    import, its writers make a Sintel + KITTI tree, and its ``validate``
-    runs over it on the CPU; nothing of the JAX package is imported."""
+    where importing any of them (or optax, or tensorboard) fails, the
+    port's data, augmentations, IO, metrics, CLI, checkpoint manager,
+    loggers and scripts import, its writers make a Sintel + KITTI tree, and
+    its ``validate`` runs over it on the CPU; nothing of the JAX package is
+    imported."""
     code = f"""
 import sys
 for name in {BLOCKED!r}:
     sys.modules[name] = None
+import torch
+torch.set_num_threads({torch.get_num_threads()})
 import ptlflow_tpu_torch.data
-from ptlflow_tpu_torch.data import dummy_datasets
+from ptlflow_tpu_torch.data import dummy_datasets, transforms
+from ptlflow_tpu_torch.data import device_transforms
 from ptlflow_tpu_torch.utils import image_io, flow_io, flow_metrics, cli
+from ptlflow_tpu_torch.utils import checkpoint_manager, logger
 from ptlflow_tpu_torch.scripts import validate, infer, test, model_benchmark
+from ptlflow_tpu_torch.scripts import train
 from pathlib import Path
 root = Path({str(tmp_path)!r})
 s = dummy_datasets.write_sintel(root, n_seqs=1, n_frames=3, size=(64, 96))

@@ -16,6 +16,8 @@ import zlib
 import numpy as np
 import pytest
 
+from tests._torch_threads import cap_torch_threads  # noqa: F401
+
 from ptlflow_tpu.utils import flow_io as jflow_io
 from ptlflow_tpu.utils import flow_viz as jflow_viz
 from ptlflow_tpu_torch.utils import flow_io, flow_viz, image_io

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests._torch_threads import cap_torch_threads  # noqa: F401
+
 from ptlflow_tpu_torch.ops import correlation as corr
 from ptlflow_tpu_torch.utils import cuda_build
 

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests._torch_threads import cap_torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 
 from ptlflow_tpu.ops import correlation as jcorr

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests._torch_threads import cap_torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 
 import ptlflow_tpu

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests._torch_threads import cap_torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 
@@ -180,15 +182,32 @@ def test_motion_encoder_bf16_corr_matches_jax(small):
 
 
 # ----------------------------------------------------------- full model
+@pytest.fixture(scope="module")
+def jax_twins():
+    """``get(name, **args)``: the JAX package's model, built once per
+    (name, args) for the whole module and without weights (its
+    ``get_model`` would draw seed-0 weights op by op, which every test
+    replaces); one instance also keeps its jitted forwards for the next
+    test."""
+    cache = {}
+
+    def get(name, **args):
+        key = (name, tuple(sorted(args.items())))
+        if key not in cache:
+            cache[key] = ptlflow_tpu.get_model_reference(name)(**args)
+        return cache[key]
+    return get
+
+
 @pytest.mark.parametrize("name", ["raft", "raft_small"])
-def test_eval_forward_matches_jax(name):
+def test_eval_forward_matches_jax(jax_twins, name):
     """Same weights, same images, 3 GRU iterations: flows within 5e-3 px
     (the JAX package's own oracle tolerance), flow_small too.
 
     The flow head is damped (``damp_flow_head``): undamped, fp32 rounding
     grows ~5x per iteration, and the JAX package's own grouped and
     ungrouped lookups differ by 1.4e-3 px after 3 iterations."""
-    jmodel = ptlflow_tpu.get_model(name, args={"iters": 3})
+    jmodel = jax_twins(name, iters=3)
     params = randomize_norms(np_tree(jmodel.init_params(seed=3)),
                              np.random.RandomState(3))
     damp_flow_head(params["update_block"])
@@ -208,10 +227,10 @@ def test_eval_forward_matches_jax(name):
                                np.asarray(want["flow_small"]), atol=5e-3)
 
 
-def _jax_and_port(name, seed, iters, **args):
+def _jax_and_port(jax_twins, name, seed, iters, **args):
     """The JAX model with random weights (norms randomised, flow head
     damped) and the port's model on the CPU with the same weights."""
-    jmodel = ptlflow_tpu.get_model(name, args={"iters": iters, **args})
+    jmodel = jax_twins(name, iters=iters, **args)
     params = randomize_norms(np_tree(jmodel.init_params(seed=seed)),
                              np.random.RandomState(seed))
     damp_flow_head(params["update_block"])
@@ -223,10 +242,10 @@ def _jax_and_port(name, seed, iters, **args):
 
 
 @pytest.mark.parametrize("name", ["raft", "raft_small"])
-def test_eval_forward_on_tiny_maps_matches_jax(name):
+def test_eval_forward_on_tiny_maps_matches_jax(jax_twins, name):
     """40x40 gives 5x5 feature maps, whose pyramid ends in a 1x1 and an
     empty level: the port answers as the JAX package does, to 5e-3 px."""
-    jmodel, tmodel, _ = _jax_and_port(name, 10, 3)
+    jmodel, tmodel, _ = _jax_and_port(jax_twins, name, 10, 3)
     images = np.random.RandomState(10).rand(1, 2, 3, 40, 40).astype(
         np.float32)
     want = jmodel({"images": images})
@@ -237,14 +256,15 @@ def test_eval_forward_on_tiny_maps_matches_jax(name):
 
 
 @pytest.mark.parametrize("name", ["raft", "raft_small"])
-def test_mixed_precision_forward_matches_jax(name):
+def test_mixed_precision_forward_matches_jax(jax_twins, name):
     """One GRU iteration in mixed precision: the port's bf16 weights are
     stored once, the JAX package casts its fp32 ones on every forward, and
     the flows agree as closely as the JAX package's own fp32 and mixed
     forwards do: mean |port - JAX mixed| is at most 1.5x mean |JAX fp32 -
     JAX mixed| on the same inputs."""
-    jmixed, tmixed, params = _jax_and_port(name, 11, 1, mixed_precision=True)
-    jfp32 = ptlflow_tpu.get_model(name, args={"iters": 1})
+    jmixed, tmixed, params = _jax_and_port(jax_twins, name, 11, 1,
+                                           mixed_precision=True)
+    jfp32 = jax_twins(name, iters=1)
     jfp32.params = jmixed.params
     assert tmixed.fnet.conv1.weight.dtype == torch.bfloat16
     images = np.random.RandomState(11).rand(1, 2, 3, 64, 96).astype(
@@ -257,11 +277,12 @@ def test_mixed_precision_forward_matches_jax(name):
 
 
 @pytest.mark.parametrize("name", ["raft", "raft_small"])
-def test_state_dict_keys_match_jax_params(name):
-    jmodel = ptlflow_tpu.get_model(name, args={"iters": 1})
+def test_state_dict_keys_match_jax_params(jax_twins, name):
+    jmodel = jax_twins(name, iters=1)
     tmodel = ptlflow_tpu_torch.get_model(name, args={"iters": 1},
                                          device="cpu")
-    assert set(tmodel.state_dict()) == jax_state_keys(jmodel.params)
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
+    assert set(tmodel.state_dict()) == jax_state_keys(shapes)
     # stride-2 blocks keep their unused norm, as the checkpoints do
     if name == "raft":
         assert "cnet.layer2.0.norm3.running_mean" in tmodel.state_dict()

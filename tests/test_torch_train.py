@@ -17,6 +17,8 @@ import optax
 import pytest
 import torch
 
+from tests._torch_threads import cap_torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 
