@@ -53,15 +53,29 @@ Phases, each of which must pass, else the script exits non-zero:
    ``last.ckpt`` strictly into a fresh ``raft`` whose flows must equal the
    trained model's; hold ``DeviceCompose`` on the card against the same
    pipeline on the CPU (one sample, the same draws, one noise field) and
-   time it; train 4 steps with ``data.train_transform_cuda=true``.
+   time it; train 4 steps with ``data.train_transform_cuda=true``;
+10. FlowFormer and FlowFormer++ (the registered 32 decoder steps, one
+    lookup each): serve 3 consecutive pairs of one sequence at 436x1024,
+    each warm-started from the last, counting 32 lookups a forward; time
+    and profile each forward in fp32 and with ``validate --bf16``'s
+    allow-list weight cast, with its peak memory; the tiled forward of
+    ``flowformer`` with ``train_size`` (432, 960): 4 tiles, 128 lookups;
+    the flows of both at 256x320 on the card against the CPU; one
+    ``flowformer`` train step at 128x160 (2 decoder steps) on both; train
+    steps of ``flowformer`` at 368x496 through ``build_train_step`` at the
+    largest of FF_TRAIN_BATCHES that fits, counting 32 lookups and 32
+    backward lookups a step; and both kernels timed at FlowFormer's
+    one-level shapes (phase 2 checks them there against their plain
+    versions).
 
 ``--against`` builds other versions of ``csrc/corr_lookup.cu`` (the same C
 interface) and times each in turns with the repo's kernel on the same
 inputs (other, repo, repo, other), in the same run.
 
 The second-to-last line is ``{"kernels": [...]}``, the line before it the
-card's name and power limit (after ``{"harness": ...}`` and
-``{"train_cli": ...}``, phases 8 and 9's numbers), and the last line
+card's name and power limit (after ``{"harness": ...}``,
+``{"train_cli": ...}`` and ``{"flowformer": ...}``, phases 8-10's
+numbers), and the last line
 ``{"ok": true, "device": {...}}``.  With no card it prints no result and
 exits 2.
 """
@@ -124,6 +138,14 @@ RAFT_CHAIRS_CONFIG = "ptlflow_tpu/models/raft/configs/raft-train1-chairs.yaml"
 CHAIRS_H, CHAIRS_W = 384, 512  # FlyingChairs frames
 CHAIRS_PAIRS = 61  # 60 in chairs-train (6 batches of 10 an epoch), 1 in val
 CLI_STEPS, CLI_RESUMED, CLI_VAL_EVERY, CLI_CUDA_STEPS = 6, 8, 3, 4
+# Phase 10: FlowFormer and FlowFormer++ at their registered depth, the
+# tiled forward at FlowFormer's Sintel crop, and training on 368x496 crops
+# (TRAIN_H x TRAIN_W) at the first of FF_TRAIN_BATCHES that fits the card
+FF_SERVE = ("flowformer", "flowformer_pp")
+FF_DEPTH = 32
+FF_TRAIN_SIZE = (432, 960)
+FF_TRAIN_BATCHES = (12, 8, 6, 4, 2)
+FF_TRAIN_STEPS = 4
 # DeviceCompose, card against CPU on one Chairs sample, the same draws and
 # one noise field: float32 sums of the same few terms in another order
 ATOL_AUG_IMAGES, ATOL_AUG_FLOWS_PX = 1e-5, 1e-4
@@ -379,6 +401,36 @@ def calibrate_norms(torch, model, images) -> None:
         m.momentum = 0.1
 
 
+def flow_conv(model):
+    """The convolution whose first two output channels are the flow step:
+    FlowFormer's flow head, or SEA-RAFT's, which also gives the info
+    channels."""
+    if hasattr(model, "memory_decoder"):
+        return model.memory_decoder.update_block.flow_head.conv2
+    return model.flow_head[2]
+
+
+def condition_flowformer(torch, model) -> None:
+    """Random FlowFormer weights give cost maps of ~1700 and 800-1600 px
+    flows at 160x128 that two CPU runs one fp32 rounding of the input apart
+    do not share (1.6e3 px).  The matching features' Twins stage 2 scaled
+    by 0.1 (its patch norm, each residual branch's last layer and the
+    positional conv's bias; its LayerNorms make the rest scale-free), so
+    the cost maps by 0.01, and the flow head's last conv by 0.01: 9-12 px
+    flows that such runs give within 1.1e-4 px at 320x256 over 32 steps."""
+    svt = model.memory_encoder.feat_encoder.svt
+    with torch.no_grad():
+        for mod in [svt.patch_embeds[1].norm] + [
+                m for blk in svt.blocks[1] for m in (blk.attn.proj,
+                                                     blk.mlp.fc2)]:
+            mod.weight.mul_(0.1)
+            mod.bias.mul_(0.1)
+        svt.pos_block[1].proj[0].bias.mul_(0.1)
+        conv = flow_conv(model)
+        conv.weight.mul_(0.01)
+        conv.bias.mul_(0.01)
+
+
 def parity_weights(torch, name: str, model, images) -> None:
     """Random weights conditioned to steps of trained size, so that two
     correct runs agree (random RAFT-family weights are chaotic: fp32
@@ -387,7 +439,11 @@ def parity_weights(torch, name: str, model, images) -> None:
     scales, the flow head's flow channels damped by 0.01 and its info
     channels by 0.1, each ConvNeXt block's ``final`` conv by 0.1 (random
     ones multiply the hidden state by ~2.5 a block, and nothing bounds it),
-    and the norms calibrated on ``images``."""
+    and the norms calibrated on ``images``.  FlowFormer:
+    ``condition_flowformer``."""
+    if name.startswith("flowformer"):
+        condition_flowformer(torch, model)
+        return
     if name.startswith("sea_raft"):
         set_layer_scales(torch, model, 1)
         with torch.no_grad():
@@ -412,7 +468,7 @@ def damp_to_served_size(torch, name: str, model, images) -> None:
     ``parity_weights`` alone, SEA-RAFT still gives 60-250 px at 1024x436.
     Each round aims at half the limit; the flow is near linear in the
     scale, so one or two rounds do."""
-    head = model.flow_head[2]
+    head = flow_conv(model)
     mags = []
     for _ in range(5):
         with torch.no_grad():
@@ -450,8 +506,9 @@ def served_model(torch, name: str, args: dict, images):
     return model
 
 
-def train_step_card_vs_cpu(torch, name: str, dev) -> dict:
-    """One train step of ``name`` at 128x160, batch 2, 2 iterations, on the
+def train_step_card_vs_cpu(torch, name: str, dev, args=None) -> dict:
+    """One train step of ``name`` at 128x160, batch 2, 2 iterations (or
+    the ``args`` that set 2 decoder steps), on the
     CPU and on the card from the same weights (``parity_weights``), and on
     the CPU again with the images one fp32 rounding off: the loss within
     RTOL_LOSS, the BatchNorm statistics within ATOL_BN and the whole
@@ -463,11 +520,11 @@ def train_step_card_vs_cpu(torch, name: str, dev) -> dict:
     from ptlflow_tpu_torch.ops import correlation as corr
     from ptlflow_tpu_torch.parallel import train as ttrain
 
-    cpu_model = ptlflow_tpu_torch.get_model(name, args={"iters": 2},
-                                            device="cpu")
+    args = {"iters": 2} if args is None else args
+    cpu_model = ptlflow_tpu_torch.get_model(name, args=args, device="cpu")
     batch = train_batch(torch, 5, 2, 128, 160, "cpu")
     parity_weights(torch, name, cpu_model, batch["images"])
-    gpu_model = ptlflow_tpu_torch.get_model(name, args={"iters": 2})
+    gpu_model = ptlflow_tpu_torch.get_model(name, args=args)
     gpu_model.load_state_dict(cpu_model.state_dict())
     # the CPU again, on images one fp32 rounding off (x (1 + 2^-23))
     nudged = dict(batch, images=batch["images"] * (1 + 2.0 ** -23))
@@ -503,7 +560,8 @@ def train_step_card_vs_cpu(torch, name: str, dev) -> dict:
                        / max(b.abs().max().item(), GRAD_FLOOR / GRAD_RTOL
                              * gmax), n) for n, a, b in zip(names, grads, cg))
 
-    bn_err = max((gs[k] - cs[k]).abs().max().item() for k in cs)
+    bn_err = max(((gs[k] - cs[k]).abs().max().item() for k in cs),
+                 default=0.0)
     for label, grads in (("card", gg), ("CPU, input one rounding off",
                                         step_out["cpu nudged"][2])):
         ratios = per_tensor(grads)
@@ -603,9 +661,9 @@ def main(argv=None) -> int:
     def randn(*shape):
         return torch.randn(*shape, generator=g).to(dev)
 
-    def case_inputs(b, h1, w1, h2, w2, c, lo, hi):
+    def case_inputs(b, h1, w1, h2, w2, c, lo, hi, levels=4):
         f1, f2 = randn(b, c, h1, w1), randn(b, c, h2, w2)
-        pyr = corr.build_corr_pyramid(f1, f2, 4)
+        pyr = corr.build_corr_pyramid(f1, f2, levels)
         u = torch.rand(b, 2, h1, w1, generator=g).to(dev)
         scale = torch.tensor([w2, h2], device=dev).view(1, 2, 1, 1)
         coords = (lo + (hi - lo) * u) * scale  # fractions of the map size
@@ -630,6 +688,12 @@ def main(argv=None) -> int:
         ("raft Q=7040, r=4", (1, hp, wp, hp, wp, 256, -0.1, 1.1), 4,
          torch.bfloat16),
         ("raft_small Q=7040, r=3", (1, hp, wp, hp, wp, 128, -0.1, 1.1), 3,
+         torch.float32),
+        # FlowFormer's lookup: one level, each pixel's whole cost map
+        (f"flowformer Q={hp * wp}, 1 level, r=4",
+         (1, hp, wp, hp, wp, 256, -0.1, 1.1, 1), 4, torch.float32),
+        (f"flowformer_pp Q={-(-H // 32) * 4 * wp}, 1 level, r=4",
+         (1, -(-H // 32) * 4, wp, -(-H // 32) * 4, wp, 256, -0.1, 1.1, 1), 4,
          torch.float32),
     ]
     far = torch.tensor([1e7, -1e7, 3.5, -2.5e6, 2.5], device=dev)
@@ -659,16 +723,22 @@ def main(argv=None) -> int:
             main_inputs[dtype] = (pyr, coords)
             if dtype == torch.float32:
                 main_err = err
+        if label.startswith("flowformer Q="):
+            main_inputs["flowformer"] = (pyr, coords, err)
     log(f"[2 kernel vs plain] {len(cases)} cases pass: worst fp32 |err| "
         f"{worst[torch.float32]:.3e} (tolerance {ATOL_FP32}), worst bf16 "
         f"|err| {worst[torch.bfloat16]:.3e} (rtol {RTOL_BF16})")
 
-    # the backward: the same edge cases, and raft's training shape
+    # the backward: the same edge cases, raft's training shape, and
+    # FlowFormer's at its reference batch of 8
     th, tw = -(-TRAIN_H // 8), -(-TRAIN_W // 8)
-    bwd_cases = [c for c in cases if not c[0].startswith(("raft ", "raft_"))]
+    bwd_cases = [c for c in cases
+                 if not c[0].startswith(("raft ", "raft_", "flowformer"))]
     bwd_cases += [(f"raft train Q={TRAIN_B * th * tw}, r=4",
                    (TRAIN_B, th, tw, th, tw, 256, -0.1, 1.1), 4, dtype)
                   for dtype in (torch.float32, torch.bfloat16)]
+    bwd_cases += [(f"flowformer train Q={8 * th * tw}, 1 level, r=4",
+                   (8, th, tw, th, tw, 256, -0.1, 1.1, 1), 4, torch.float32)]
     worst_bwd = {torch.float32: 0.0, torch.bfloat16: 0.0}
     train_inputs, bwd_err, bwd_gmax = None, None, None
     for label, shape, radius, dtype in bwd_cases:
@@ -1109,6 +1179,18 @@ def main(argv=None) -> int:
                     for i in (0, 1)]
     launches[cli_path] = cli_launches[0]
 
+    # ---------------------------------------------------------------- 10
+    ff = flowformer_phase(torch, dev, tag, main_inputs["flowformer"])
+    launches.update(ff["launches"])
+    ff_bwd_launches = {
+        "flowformer train step at 128x160, 2 decoder steps":
+            ff["train_step_card_vs_cpu"]["launches"][1],
+        f"flowformer train, {FF_TRAIN_STEPS} steps at {TRAIN_W}x{TRAIN_H}, "
+        f"batch {ff['train']['batch']}": sum(ff["train"]["lookup_backward"])}
+    launches[f"flowformer train, {FF_TRAIN_STEPS} steps at {TRAIN_W}x"
+             f"{TRAIN_H}, batch {ff['train']['batch']}"] = sum(
+                 ff["train"]["lookup"])
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -1140,6 +1222,7 @@ def main(argv=None) -> int:
         "host_us_one_shot": host_us_one_shot,
         "host_us_prepared": host_us_prepared,
         "train_launches_per_step": train["lookup"],
+        "flowformer_shape": ff["kernels"]["corr_lookup"],
     }, {
         "name": "corr_lookup_backward",
         "route": "cuda",
@@ -1152,7 +1235,7 @@ def main(argv=None) -> int:
         "launches_by_path": dict(
             {f"{name} train step at 128x160, 2 iters": check["launches"][1]
              for name, check in step_check.items()},
-            **{cli_path: cli_launches[1]}),
+            **{cli_path: cli_launches[1]}, **ff_bwd_launches),
         "max_abs_err": bwd_err,
         "max_abs_grad": bwd_gmax,
         "ms": bwd_ms,
@@ -1163,6 +1246,7 @@ def main(argv=None) -> int:
         "profiler_ms": bwd_profiler_ms,
         "bound_bytes": bb["bytes"],
         "level_sums_ms": 11 * sum_ms,
+        "flowformer_shape": ff["kernels"]["corr_lookup_backward"],
     }]
     if against:
         kernels[0]["against"] = against
@@ -1173,6 +1257,8 @@ def main(argv=None) -> int:
                     "card": tag}))
     log(json.dumps({"harness": harness}))
     log(json.dumps({"train_cli": train_cli}))
+    log(json.dumps({"flowformer": {k: v for k, v in ff.items()
+                                   if k != "kernels"}, "card": tag}))
     log(tag)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1662,8 +1748,297 @@ def train_cli_phase(torch, dev, tag: str, work: str, bare_step_ms: float
     return out
 
 
+def ff_served(torch, name: str, images, args=None):
+    """``get_model(name)`` on the card at its registered depth, its seeded
+    weights conditioned (``parity_weights``) and damped to flows of
+    trained size on ``images`` (``damp_to_served_size``)."""
+    import ptlflow_tpu_torch
+
+    model = ptlflow_tpu_torch.get_model(name, args=args)
+    parity_weights(torch, name, model, images)
+    damp_to_served_size(torch, name, model, images)
+    return model
+
+
+def check_flows(torch, name: str, out, shape) -> None:
+    flows = out["flows"]
+    if tuple(flows.shape) != shape:
+        raise AssertionError(f"{name}: flows {tuple(flows.shape)}")
+    if not torch.isfinite(flows).all():
+        raise AssertionError(f"{name}: non-finite flows")
+    if any(v.grad_fn is not None for v in out.values()):
+        raise AssertionError(f"{name}: the eval forward built an autograd "
+                             f"graph")
+
+
+def flowformer_phase(torch, dev, tag: str, ff_lookup) -> dict:
+    """Phase 10: FlowFormer and FlowFormer++ on the card (see the module
+    docstring).  ``ff_lookup`` is phase 2's (pyramid, coords, max |err|)
+    at FlowFormer's one-level eval shape.  Returns the numbers, the launch
+    counts of each path and both kernels' timings at FlowFormer's
+    shapes."""
+    import copy
+
+    import ptlflow_tpu_torch
+    from ptlflow_tpu_torch.ops import correlation as corr
+    from ptlflow_tpu_torch.parallel import train as ttrain
+    from ptlflow_tpu_torch.scripts.validate import cast_to_bf16
+    from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+
+    out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
+           "peak_gib": {}, "forward_gib": {}, "launches": {},
+           "card_vs_cpu_px": {}}
+    # 3 consecutive pairs of one sequence moving (2, 1) px a frame
+    frames = smooth_frames(31, H, W, 4, shift=(2, 1))
+    calib = IOAdapter(device=dev).prepare_inputs(frames[:2])["images"]
+    for name in FF_SERVE:
+        model = ff_served(torch, name, calib)
+        adapter = IOAdapter(model)
+        corr.corr_lookup_kernel.launches = 0
+        prev = None
+        for k in range(3):
+            x = adapter.prepare_inputs(frames[k:k + 2])
+            if prev is not None:
+                x["prev_preds"] = {"flow_small": prev}
+            before = corr.corr_lookup_kernel.launches
+            res = model(x)
+            torch.cuda.synchronize()
+            n = corr.corr_lookup_kernel.launches - before
+            check_flows(torch, name, adapter.unscale(res), (1, 1, 2, H, W))
+            if n != FF_DEPTH:
+                raise AssertionError(f"{name}: {n} lookup launches in one "
+                                     f"forward, expected {FF_DEPTH}")
+            mean = res["flows"].mean(dim=(0, 1, 3, 4)).tolist()
+            log(f"[10 serve] {name} pair {k} at {W}x{H}"
+                f"{', warm-started' if prev is not None else ''}: flows "
+                f"finite, no grad_fn, mean ({mean[0]:.3f}, {mean[1]:.3f}) "
+                f"px (true motion 2, 1), {n} lookup launches")
+            prev = res["flow_small"]
+        key = f"{name} serve, 3 pairs warm-started"
+        out["launches"][key] = corr.corr_lookup_kernel.launches
+
+        images = x["images"]
+        for mode in ("fp32", "bf16 cast"):
+            served = model
+            if mode == "bf16 cast":
+                served = copy.deepcopy(model)
+                if not cast_to_bf16(served, name):
+                    raise AssertionError(f"{name}: not on the allow-list")
+            label = f"{name} {mode}"
+            for _ in range(3):
+                served({"images": images})
+            runs = sorted(timed_ms(torch, lambda: served({"images": images}),
+                                   10) for _ in range(3))
+            # the peak of one forward, and above what was allocated before
+            # it (the model, and what earlier phases still hold)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            served({"images": images})
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            out["forward_ms"][label] = runs[1]
+            out["forward_runs_ms"][label] = runs
+            out["peak_gib"][label] = peak / 2 ** 30
+            out["forward_gib"][label] = (peak - base) / 2 ** 30
+            log(f"[10 forward] [{tag}] {label}, {W}x{H}, {FF_DEPTH} decoder "
+                f"steps: {runs[1]:.3f} ms/forward, {1e3 / runs[1]:.2f} fps "
+                f"(median of 3 runs of 10 forwards: "
+                f"{', '.join(f'{r:.3f}' for r in runs)} ms); peak "
+                f"{peak / 2 ** 30:.2f} GiB allocated, "
+                f"{(peak - base) / 2 ** 30:.2f} GiB above the "
+                f"{base / 2 ** 30:.2f} GiB allocated before the forward")
+            out["profile"][label] = profile_forward(
+                torch, served, images, label, tag, runs[1], phase=10)
+            del served
+        del model
+
+    # the tiled forward at FlowFormer's Sintel crop: tiles at (0|4, 0|64)
+    model = ff_served(torch, "flowformer", calib)
+    model.train_size = FF_TRAIN_SIZE
+    model.tile_height = FF_TRAIN_SIZE[0]
+    corr.corr_lookup_kernel.launches = 0
+    res = model({"images": calib})
+    torch.cuda.synchronize()
+    n = corr.corr_lookup_kernel.launches
+    check_flows(torch, "flowformer tiled", res, (1, 1, 2, H, W))
+    if n != 4 * FF_DEPTH:
+        raise AssertionError(f"tiled forward: {n} lookup launches, expected "
+                             f"{4 * FF_DEPTH}")
+    out["launches"][f"flowformer tiled, train_size {FF_TRAIN_SIZE}"] = n
+    runs = sorted(timed_ms(torch, lambda: model({"images": calib}), 3)
+                  for _ in range(3))
+    out["forward_ms"]["flowformer tiled"] = runs[1]
+    out["forward_runs_ms"]["flowformer tiled"] = runs
+    mean = res["flows"].mean(dim=(0, 1, 3, 4)).tolist()
+    log(f"[10 tiled] [{tag}] flowformer at {W}x{H}, train_size "
+        f"{FF_TRAIN_SIZE}: 4 tiles, {n} lookup launches, flows finite, mean "
+        f"({mean[0]:.3f}, {mean[1]:.3f}) px; {runs[1]:.3f} ms/forward "
+        f"(median of 3 runs of 3: {', '.join(f'{r:.3f}' for r in runs)} ms)")
+    del model, res
+
+    # card against CPU at 256x320, the registered depth
+    pair = smooth_pair(7, 256, 320, shift=(3, 2))
+    for name in FF_SERVE:
+        cpu_model = ptlflow_tpu_torch.get_model(name, device="cpu")
+        x = IOAdapter(cpu_model).prepare_inputs(list(pair))
+        parity_weights(torch, name, cpu_model, x["images"])
+        gpu_model = ptlflow_tpu_torch.get_model(name)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        want = cpu_model(x)["flows"]
+        got = gpu_model({"images": x["images"].to(dev)})["flows"].cpu()
+        diff = (got - want).abs().max().item()
+        out["card_vs_cpu_px"][name] = diff
+        log(f"[10 card vs cpu] {name} 256x320, {FF_DEPTH} decoder steps: max "
+            f"|dflow| {diff:.3e} px (flow up to {want.abs().max().item():.2f} "
+            f"px, tolerance {ATOL_CARD_CPU_PX} px)")
+        if not diff <= ATOL_CARD_CPU_PX:
+            raise AssertionError(f"{name}: card and CPU differ by {diff} px")
+        del cpu_model, gpu_model
+    out["train_step_card_vs_cpu"] = train_step_card_vs_cpu(
+        torch, "flowformer", dev, {"decoder_depth": 2})
+
+    # train steps at 368x496, the registered depth, the largest batch that
+    # fits
+    model = ptlflow_tpu_torch.get_model("flowformer")
+    condition_flowformer(torch, model)
+    tx = ttrain.make_optimizer(lr=2.5e-4, wdecay=1e-4, total_steps=120000,
+                               pct_start=0.05, grad_clip=1.0)
+    step = ttrain.build_train_step(model, tx)
+    state = ttrain.create_train_state(model, tx)
+    train = None
+    for b in FF_TRAIN_BATCHES:
+        batches = [train_batch(torch, 300 + k, b, TRAIN_H, TRAIN_W, dev)
+                   for k in range(FF_TRAIN_STEPS)]
+        rec = {"batch": b, "step_ms": [], "loss": [], "lookup": [],
+               "lookup_backward": []}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            for batch in batches:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                corr.corr_lookup_kernel.launches = 0
+                corr.corr_lookup_backward_kernel.launches = 0
+                start.record()
+                state, metrics = step(state, batch)
+                end.record()
+                end.synchronize()
+                rec["step_ms"].append(start.elapsed_time(end))
+                rec["loss"].append(metrics["loss"].item())
+                rec["lookup"].append(corr.corr_lookup_kernel.launches)
+                rec["lookup_backward"].append(
+                    corr.corr_lookup_backward_kernel.launches)
+        except torch.cuda.OutOfMemoryError:
+            log(f"[10 train] batch {b} does not fit in "
+                f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}"
+                f" GiB; trying the next")
+            del batches, rec
+            torch.cuda.empty_cache()
+            continue
+        train = rec
+        break
+    if train is None:
+        raise AssertionError("no FlowFormer training batch fits")
+    for k, (ms, loss, nf, nb) in enumerate(zip(
+            train["step_ms"], train["loss"], train["lookup"],
+            train["lookup_backward"])):
+        log(f"[10 train] [{tag}] flowformer step {k + 1}, batch "
+            f"{train['batch']}: loss {loss:.5f}, {ms:.3f} ms by CUDA events, "
+            f"{nf} lookup and {nb} backward launches")
+        if not math.isfinite(loss):
+            raise AssertionError(f"flowformer train step {k + 1}: non-finite "
+                                 f"loss")
+        if (nf, nb) != (FF_DEPTH, FF_DEPTH):
+            raise AssertionError(f"flowformer train step {k + 1}: expected "
+                                 f"{FF_DEPTH} launches of each kernel")
+    later = sorted(train["step_ms"][1:])
+    train["median_step_ms"] = later[len(later) // 2]
+    train["samples_per_s"] = train["batch"] / train["median_step_ms"] * 1e3
+    train["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    train["steps_gib"] = train["peak_gib"] - base / 2 ** 30
+    th, tw = -(-TRAIN_H // 8), -(-TRAIN_W // 8)
+    train["profile"] = profile_train_step(
+        torch, step, state, batches[-1], [(train["batch"] * th * tw, th, tw)],
+        tag, train["median_step_ms"], label="flowformer", phase=10)
+    out["train"] = train
+    log(f"[10 train] [{tag}] flowformer {TRAIN_W}x{TRAIN_H}, batch "
+        f"{train['batch']}, {FF_DEPTH} decoder steps, fp32 (TF32 off): "
+        f"{train['median_step_ms']:.3f} ms per step (median of steps "
+        f"2-{FF_TRAIN_STEPS}), {train['samples_per_s']:.2f} samples/s, peak "
+        f"{train['peak_gib']:.2f} GiB allocated, {train['steps_gib']:.2f} GiB "
+        f"above what the model, its optimizer state, the batches and earlier "
+        f"phases held before the first step")
+    del model, state, step, batches
+
+    # both kernels at FlowFormer's shapes, L2 flushed before each launch
+    flush = flushes(torch, dev)["dirty"]
+    pyr, coords, err = ff_lookup
+    lookup = corr.make_corr_lookup(pyr, 4)
+    bound = lookup_bound(torch, pyr, coords, 4)
+    fwd = {"q": coords.shape[0] * coords.shape[2] * coords.shape[3],
+           "levels": [tuple(p.shape[1:]) for p in pyr],
+           "max_abs_err": err,
+           "ms": timed_ms(torch, lambda: lookup(coords), 50, flush),
+           "profiler_ms": profiled_ms(torch, lambda: lookup(coords), 50,
+                                      flush),
+           "plain_ms": timed_ms(torch, lambda: corr.corr_pyramid_lookup_plain(
+               pyr, coords, 4), 20, flush),
+           "library_ms": timed_ms(torch, lambda: grid_sample_lookup(
+               torch, pyr, coords, 4), 20, flush),
+           "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+           "bound_bytes": bound["bytes"]}
+    b = train["batch"]
+    g = torch.Generator().manual_seed(10)
+    f1 = torch.randn(b, 256, th, tw, generator=g).to(dev)
+    f2 = torch.randn(b, 256, th, tw, generator=g).to(dev)
+    levels = corr.build_corr_pyramid(f1, f2, 1)
+    tcoords = (torch.rand(b, 2, th, tw, generator=g).to(dev) * 1.2 - 0.1) \
+        * torch.tensor([tw, th], device=dev).view(1, 2, 1, 1)
+    grad = torch.randn(b, 81, th, tw, generator=g).to(dev)
+    shapes = [(th, tw)]
+
+    def bwd():
+        return corr.corr_lookup_backward_kernel(grad, tcoords, shapes, 4)
+
+    got, again = bwd(), bwd()
+    want = corr.corr_pyramid_lookup_backward_plain(grad, tcoords, shapes, 4)
+    bwd_err = (got[0] - want[0]).abs().max().item()
+    gmax = want[0].abs().max().item()
+    if not (torch.equal(got[0], again[0]) and bwd_err <= RTOL_BWD_FP32 * gmax):
+        raise AssertionError(f"FlowFormer-shaped backward: |err| {bwd_err}")
+    lv = [levels[0].detach().requires_grad_()]
+    gs_out = grid_sample_lookup(torch, lv, tcoords, 4)
+    bb = backward_bound(torch, grad, tcoords, shapes, 4)
+    bwd_rec = {"q": b * th * tw, "levels": shapes, "max_abs_err": bwd_err,
+               "max_abs_grad": gmax,
+               "ms": timed_ms(torch, bwd, 20, flush),
+               "profiler_ms": profiled_ms(torch, bwd, 20, flush,
+                                          name="corr_lookup_backward"),
+               "plain_ms": timed_ms(
+                   torch, lambda: corr.corr_pyramid_lookup_backward_plain(
+                       grad, tcoords, shapes, 4), 3, flush),
+               "library_ms": timed_ms(torch, lambda: torch.autograd.grad(
+                   gs_out, lv, grad, retain_graph=True), 5, flush),
+               "bound_ms": bb["bound_ms"], "bound_by": bb["bound_by"],
+               "bound_bytes": bb["bytes"]}
+    del gs_out, lv, got, again, want
+    out["kernels"] = {"corr_lookup": fwd, "corr_lookup_backward": bwd_rec}
+    for kname, rec in out["kernels"].items():
+        log(f"[10 kernels] [{tag}] {kname} at FlowFormer's shape Q="
+            f"{rec['q']}, levels {rec['levels']}, r=4, fp32, L2 flushed per "
+            f"launch: {rec['ms']:.4f} ms by CUDA events, "
+            f"{fmt_ms(rec['profiler_ms'])} device time by the profiler; plain "
+            f"{rec['plain_ms']:.4f} ms; library {rec['library_ms']:.4f} ms; "
+            f"bound {rec['bound_ms']:.5f} ms by {rec['bound_by']} "
+            f"({rec['bound_bytes']} bytes), kernel at "
+            f"{rec['bound_ms'] / rec['ms']:.1%} of it")
+    return out
+
+
 def profile_forward(torch, model, images, label: str, tag: str,
-                    event_ms: float) -> dict:
+                    event_ms: float, phase: int = 5) -> dict:
     """Device time by kernel over one forward (torch.profiler): busy ms,
     launches, idle share against the unprofiled ``event_ms``, the lookup's
     share and the top kernels.  A first profiled forward absorbs the
@@ -1686,14 +2061,14 @@ def profile_forward(torch, model, images, label: str, tag: str,
             if us > 0:
                 rows.append((us / 1e3, e.count, e.key))
     if not rows:
-        log(f"[5 profile] [{tag}] {label}: no device time recorded: not "
-            f"measured")
+        log(f"[{phase} profile] [{tag}] {label}: no device time recorded: "
+            f"not measured")
         return {"busy_ms": None}
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     lookup = sum(r[0] for r in rows if "corr_lookup" in r[2])
     launches = sum(r[1] for r in rows)
-    log(f"[5 profile] [{tag}] {label} forward under the profiler: "
+    log(f"[{phase} profile] [{tag}] {label} forward under the profiler: "
         f"{busy:.3f} ms of kernels ({launches} launches) in {wall_ms:.3f} ms "
         f"wall; against the unprofiled {event_ms:.3f} ms forward the card "
         f"idles {1 - busy / event_ms:.1%}; lookup kernel {lookup:.3f} ms "
@@ -1707,7 +2082,8 @@ def profile_forward(torch, model, images, label: str, tag: str,
 
 
 def profile_train_step(torch, step, state, batch, level_shapes, tag: str,
-                       event_ms: float) -> dict:
+                       event_ms: float, label: str = "raft",
+                       phase: int = 7) -> dict:
     """Device time by kernel over one train step (torch.profiler, shapes
     recorded), after a discarded profiled step: the idle share against the
     unprofiled step time ``event_ms``, the top kernels, both lookup
@@ -1741,8 +2117,8 @@ def profile_train_step(torch, step, state, batch, level_shapes, tag: str,
             if us > 0:
                 rows.append((us / 1e3, e.count, e.key))
     if not rows:
-        log(f"[7 profile] [{tag}] train step: no device time recorded: not "
-            f"measured")
+        log(f"[{phase} profile] [{tag}] {label} train step: no device time "
+            f"recorded: not measured")
         return {"busy_ms": None}
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
@@ -1769,7 +2145,7 @@ def profile_train_step(torch, step, state, batch, level_shapes, tag: str,
                 tuple(s) in shapes for s in (e.input_shapes or [])):
             sums_ms += dev_us(e, self_only=False) / 1e3
             sums_n += e.count
-    log(f"[7 profile] [{tag}] raft train step under the profiler: "
+    log(f"[{phase} profile] [{tag}] {label} train step under the profiler: "
         f"{busy:.3f} ms of kernels ({sum(r[1] for r in rows)} launches), "
         f"busy {union:.3f} ms (the union of their intervals), in "
         f"{wall_ms:.3f} ms wall; against the unprofiled {event_ms:.3f} ms "

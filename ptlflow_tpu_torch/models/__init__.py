@@ -1,3 +1,3 @@
 """Model families of the PyTorch port; importing registers them."""
 
-from . import gma, raft, sea_raft  # noqa: F401
+from . import flowformer, flowformerplusplus, gma, raft, sea_raft  # noqa: F401

@@ -65,7 +65,8 @@ class BaseModel(nn.Module):
         kaiming-normal (fan_out, relu) with uniform biases; linear weights
         and biases uniform in +-1/sqrt(in_features); embeddings standard
         normal; norms at weight 1, bias 0, mean 0, var 1.  A module's own
-        parameters (layer scales) are set by its ``init_own_params()``."""
+        parameters (layer scales, FlowFormer's latent tokens) are set by
+        its ``init_own_params(gen)``."""
         gen = torch.Generator().manual_seed(seed)
 
         def uniform(t: torch.Tensor, bound: float) -> None:
@@ -93,7 +94,7 @@ class BaseModel(nn.Module):
             elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm)):
                 mod.reset_parameters()
             if hasattr(mod, "init_own_params"):
-                mod.init_own_params()
+                mod.init_own_params(gen)
         return self
 
     def forward(self, inputs: Dict[str, torch.Tensor],

@@ -6,13 +6,16 @@ Attribute names, and the reference's persistent ``rel_ind`` buffer, are the
 reference's, so its checkpoints load with ``strict=True``.  The attention
 products are plain matrix products (``torch.matmul``/``einsum``), as the
 JAX package computes them outside any Pallas kernel; the similarity and
-its softmax are taken in float32.
+its softmax are taken in float32.  The convolutions cast their weights to
+their input's dtype, as the JAX package's do.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ...nn import CastConv2d
 
 
 class RelPosEmb(nn.Module):
@@ -45,7 +48,7 @@ class Attention(nn.Module):
         self.heads = heads
         self.dim_head = dim_head
         self.scale = dim_head ** -0.5
-        self.to_qk = nn.Conv2d(dim, heads * dim_head * 2, 1, bias=False)
+        self.to_qk = CastConv2d(dim, heads * dim_head * 2, 1, bias=False)
         self.pos_emb = RelPosEmb(max_pos_size, dim_head)
 
     def forward(self, fmap: torch.Tensor) -> torch.Tensor:
@@ -77,12 +80,12 @@ class Aggregate(nn.Module):
         self.heads = heads
         self.dim_head = dim_head
         inner = heads * dim_head
-        self.to_v = nn.Conv2d(dim, inner, 1, bias=False)
+        self.to_v = CastConv2d(dim, inner, 1, bias=False)
         self.gamma = nn.Parameter(torch.zeros(1))
-        self.project = (nn.Conv2d(inner, dim, 1, bias=False)
+        self.project = (CastConv2d(inner, dim, 1, bias=False)
                         if dim != inner else None)
 
-    def init_own_params(self) -> None:
+    def init_own_params(self, gen: torch.Generator) -> None:
         self.gamma.zero_()
 
     def forward(self, attn: torch.Tensor, fmap: torch.Tensor) -> torch.Tensor:

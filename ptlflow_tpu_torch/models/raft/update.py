@@ -6,6 +6,10 @@ The motion encoders' correlation convolutions run in the correlation's
 dtype (``CastConv2d``), as in the JAX package: a bfloat16 lookup output
 stays bfloat16 through ``convc1``/``convc2`` and is promoted to float32
 where it is concatenated with the float32 flow features.
+FlowHead, SepConvGRU and BasicMotionEncoder cast every weight to their
+input's dtype, so a FlowFormer whose weights ``validate --bf16`` cast to
+bfloat16 runs them as the JAX package does; on weights of the input's
+dtype this casts nothing.
 The JAX package runs the z and r convolutions of the GRU as one fused
 convolution to read the GRU input once on the TPU; here they are the two
 separate convolutions of the reference, which is the same math.
@@ -22,8 +26,8 @@ from ...nn import CastConv2d
 class FlowHead(nn.Module):
     def __init__(self, input_dim=128, hidden_dim=256):
         super().__init__()
-        self.conv1 = nn.Conv2d(input_dim, hidden_dim, 3, padding=1)
-        self.conv2 = nn.Conv2d(hidden_dim, 2, 3, padding=1)
+        self.conv1 = CastConv2d(input_dim, hidden_dim, 3, padding=1)
+        self.conv2 = CastConv2d(hidden_dim, 2, 3, padding=1)
 
     def forward(self, x):
         return self.conv2(torch.relu(self.conv1(x)))
@@ -48,12 +52,12 @@ class SepConvGRU(nn.Module):
     def __init__(self, hidden_dim=128, input_dim=192 + 128):
         super().__init__()
         c = hidden_dim + input_dim
-        self.convz1 = nn.Conv2d(c, hidden_dim, (1, 5), padding=(0, 2))
-        self.convr1 = nn.Conv2d(c, hidden_dim, (1, 5), padding=(0, 2))
-        self.convq1 = nn.Conv2d(c, hidden_dim, (1, 5), padding=(0, 2))
-        self.convz2 = nn.Conv2d(c, hidden_dim, (5, 1), padding=(2, 0))
-        self.convr2 = nn.Conv2d(c, hidden_dim, (5, 1), padding=(2, 0))
-        self.convq2 = nn.Conv2d(c, hidden_dim, (5, 1), padding=(2, 0))
+        self.convz1 = CastConv2d(c, hidden_dim, (1, 5), padding=(0, 2))
+        self.convr1 = CastConv2d(c, hidden_dim, (1, 5), padding=(0, 2))
+        self.convq1 = CastConv2d(c, hidden_dim, (1, 5), padding=(0, 2))
+        self.convz2 = CastConv2d(c, hidden_dim, (5, 1), padding=(2, 0))
+        self.convr2 = CastConv2d(c, hidden_dim, (5, 1), padding=(2, 0))
+        self.convq2 = CastConv2d(c, hidden_dim, (5, 1), padding=(2, 0))
 
     @staticmethod
     def _step(convz, convr, convq, h, x):
@@ -85,14 +89,19 @@ class SmallMotionEncoder(nn.Module):
 
 
 class BasicMotionEncoder(nn.Module):
-    def __init__(self, corr_levels, corr_radius):
+    """``cor_planes``, where given, is the width of the correlation
+    features in place of the lookup's ``corr_levels * (2r+1)^2``
+    (FlowFormer's update block adds its attention output to them)."""
+
+    def __init__(self, corr_levels=None, corr_radius=None, cor_planes=None):
         super().__init__()
-        cor_planes = corr_levels * (2 * corr_radius + 1) ** 2
+        if cor_planes is None:
+            cor_planes = corr_levels * (2 * corr_radius + 1) ** 2
         self.convc1 = CastConv2d(cor_planes, 256, 1, padding=0)
         self.convc2 = CastConv2d(256, 192, 3, padding=1)
-        self.convf1 = nn.Conv2d(2, 128, 7, padding=3)
-        self.convf2 = nn.Conv2d(128, 64, 3, padding=1)
-        self.conv = nn.Conv2d(64 + 192, 128 - 2, 3, padding=1)
+        self.convf1 = CastConv2d(2, 128, 7, padding=3)
+        self.convf2 = CastConv2d(128, 64, 3, padding=1)
+        self.conv = CastConv2d(64 + 192, 128 - 2, 3, padding=1)
 
     def forward(self, flow, corr):
         cor = torch.relu(self.convc2(torch.relu(self.convc1(corr))))

@@ -42,7 +42,7 @@ class ConvNextBlock(nn.Module):
                       if layer_scale_init_value > 0 else None)
         self.final = nn.Conv2d(dim, output_dim, 1, padding=0)
 
-    def init_own_params(self) -> None:
+    def init_own_params(self, gen: torch.Generator) -> None:
         if self.gamma is not None:
             self.gamma.fill_(self.layer_scale_init_value)
 

@@ -28,6 +28,15 @@ class CastConv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+class CastLinear(nn.Linear):
+    """``nn.Linear`` that runs in its input's dtype, as ``CastConv2d``: the
+    JAX package's ``Linear`` casts its weight and bias to ``x.dtype``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d``.  In eval mode it folds the running statistics
     into one scale and shift in float32 and applies them in the input's

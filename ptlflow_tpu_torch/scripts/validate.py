@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import argparse
 import csv
+import inspect
+import json
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -25,13 +27,21 @@ import numpy as np
 import torch
 
 import ptlflow_tpu_torch
+from ptlflow_tpu_torch.nn import cast_params
 from ptlflow_tpu_torch.utils import flow_io, image_io
 from ptlflow_tpu_torch.utils.cli import (add_common_model_args,
                                          datamodule_from_cfg, load_config,
-                                         model_from_args, parse_with_config)
+                                         model_from_args,
+                                         model_name_from_args,
+                                         parse_with_config)
 from ptlflow_tpu_torch.utils.flow_metrics import FlowMetrics
 from ptlflow_tpu_torch.utils.flow_viz import apply_jet, flow_to_rgb
 from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+
+# The JAX package's bf16 sweep (ptlflow_tpu/utils/bf16_allowlist.json,
+# copied): the models whose weights validate --bf16 may cast to bfloat16.
+BF16_ALLOWLIST = (Path(__file__).resolve().parent.parent / "utils"
+                  / "bf16_allowlist.json")
 
 
 def _parse_args(argv=None):
@@ -55,10 +65,10 @@ def _parse_args(argv=None):
                         help="which prediction frame to evaluate when the "
                         "model predicts more than one")
     parser.add_argument("--bf16", action="store_true",
-                        help="mixed-precision inference: the model's "
-                        "mixed_precision mode (bf16 weights and "
-                        "activations, fp32 flow); refused by models "
-                        "without one")
+                        help="bf16 inference: the model's mixed_precision "
+                        "mode (bf16 weights and activations, fp32 flow); "
+                        "for a model without one, its weights cast to "
+                        "bf16 if it is on the bf16 allow-list, else fp32")
     parser.add_argument("--max_samples", type=int, default=None)
     parser.add_argument("--show", action="store_true",
                         help="display results on screen: not available in "
@@ -244,6 +254,36 @@ def _write_outputs(flows: torch.Tensor, batch, has_gt: bool,
         image_io.imwrite(sub / f"{stem}_epe.png", apply_jet(epe_img))
 
 
+def has_mixed_mode(model_cls) -> bool:
+    """Whether the model class takes ``mixed_precision``."""
+    params = inspect.signature(model_cls.__init__).parameters
+    return "mixed_precision" in params
+
+
+def cast_to_bf16(model: torch.nn.Module, model_name: str) -> bool:
+    """``validate --bf16`` for a model without a mixed-precision mode, as
+    the JAX ``validate.py`` (:257-293) does it: the weights cast to
+    bfloat16 in place (norm statistics stay float32) where the bf16
+    allow-list has the model, with a notice where it has it only as
+    provisional; otherwise a notice, and the model stays float32.  Every
+    layer then casts its weights to its input's dtype, so the forward of
+    float32 images computes in float32 on bf16-rounded weights, as the JAX
+    package's does.  Returns whether it cast."""
+    with open(BF16_ALLOWLIST) as f:
+        lists = json.load(f)
+    provisional = set(lists.get("provisional", []))
+    if model_name not in set(lists["allow"]) | provisional:
+        print(f"[{model_name}] not on the bf16 allow-list "
+              f"({BF16_ALLOWLIST.name}); validating in fp32")
+        return False
+    if model_name in provisional:
+        print(f"[{model_name}] bf16 support is PROVISIONAL (random-weight "
+              f"rel delta 0.3-1.0; re-validate with real checkpoints — "
+              f"scripts/run_accuracy.sh)")
+    cast_params(model, torch.bfloat16)
+    return True
+
+
 def validate(args, model=None, model_name: Optional[str] = None,
              timings: Optional[Dict[str, Dict[str, List[float]]]] = None):
     """Validate ``model`` (or the one ``args`` names) on every dataset of
@@ -262,15 +302,19 @@ def validate(args, model=None, model_name: Optional[str] = None,
     init_args = {}
     if args.iters is not None:
         init_args["iters"] = args.iters
-    if args.bf16:
-        init_args["mixed_precision"] = True
     if model is None:
+        model_name = model_name_from_args(args, cfg)
+        if args.bf16 and has_mixed_mode(
+                ptlflow_tpu_torch.get_model_reference(model_name)):
+            init_args["mixed_precision"] = True
         model, model_name = model_from_args(args, cfg, init_args)
     elif args.iters is not None and hasattr(model, "iters"):
         model.iters = args.iters
     if args.bf16 and not getattr(model, "mixed_precision", False):
-        raise ValueError(f"--bf16: {model_name} has no mixed-precision mode "
-                         f"(or was built without it)")
+        if has_mixed_mode(type(model)):
+            raise ValueError(f"--bf16: {model_name} was built without its "
+                             f"mixed-precision mode")
+        cast_to_bf16(model, model_name)
 
     dm = datamodule_from_cfg(cfg, output_stride=model.output_stride,
                              val_dataset=args.val_dataset)

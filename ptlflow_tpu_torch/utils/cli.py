@@ -92,6 +92,18 @@ def resolve_device(args: argparse.Namespace) -> torch.device:
     return device
 
 
+def model_name_from_args(args: argparse.Namespace,
+                         cfg: Dict[str, Any]) -> str:
+    """``args.model``, else the config's ``model.name`` or the last part of
+    its ``model.class_path``."""
+    model_cfg = cfg.get("model", {})
+    name = args.model or model_cfg.get("name") \
+        or str(model_cfg.get("class_path", "")).split(".")[-1]
+    if not name:
+        raise SystemExit("--model is required (or set model.name in config)")
+    return name
+
+
 def model_from_args(args: argparse.Namespace, cfg: Dict[str, Any],
                     init_args: Optional[Dict[str, Any]] = None):
     """The registered model ``args.model`` (or the config's) on
@@ -99,12 +111,8 @@ def model_from_args(args: argparse.Namespace, cfg: Dict[str, Any],
     ``init_args``."""
     import ptlflow_tpu_torch
 
-    model_cfg = cfg.get("model", {})
-    name = args.model or model_cfg.get("name") \
-        or str(model_cfg.get("class_path", "")).split(".")[-1]
-    if not name:
-        raise SystemExit("--model is required (or set model.name in config)")
-    kwargs = dict(model_cfg.get("init_args", {}))
+    name = model_name_from_args(args, cfg)
+    kwargs = dict(cfg.get("model", {}).get("init_args", {}))
     kwargs.update(init_args or {})
     ckpt = args.ckpt_path or cfg.get("ckpt_path")
     model = ptlflow_tpu_torch.get_model(name, ckpt_path=ckpt, args=kwargs,

@@ -11,11 +11,15 @@ embedding table, which the JAX package stores as torch does.  Given the
 target, the result also holds what the JAX tree drops and a strict load
 needs: a second name of a tensor the target registers twice (SEA-RAFT's
 ``bn3`` is also ``downsample.1``) and the buffers the JAX package rebuilds
-on every call (GMA's ``rel_ind``).
+on every call (GMA's ``rel_ind``), and the reference's names where the
+JAX package renames a tensor and its ``from_torch`` undoes the rename
+(``RENAMES``: FlowFormer's FFNs, whose reference ``Sequential`` holds
+dropouts at indices 2 and 4, and its decoder's nested cross-attention).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Optional, Set
 
 import numpy as np
@@ -23,6 +27,12 @@ import torch
 
 # Buffers that the JAX package computes where the reference stores them.
 STATIC_BUFFERS = ("rel_ind",)
+
+# (JAX name, reference name) of a dotted path segment, undone by the JAX
+# package's from_torch (ptlflow_tpu/models/flowformer/flowformer.py:129-137,
+# 166-173, 456-463 and 550-559; flowformerplusplus.py:130-139).
+RENAMES = (("decoder_layer_cross_attend.", "decoder_layer.cross_attend."),
+           ("ffn.2.", "ffn.3."))
 
 
 def state_dict_from_jax(params: Dict[str, Any],
@@ -37,8 +47,26 @@ def state_dict_from_jax(params: Dict[str, Any],
                       if isinstance(mod, torch.nn.Embedding)}
     out = _convert(params, "", embeddings)
     if target is not None:
+        out = _rename_to_target(out, set(target.state_dict()))
         _add_target_only(out, target)
     return out
+
+
+def _rename_to_target(out: Dict[str, torch.Tensor],
+                      own: Set[str]) -> Dict[str, torch.Tensor]:
+    """Each name that the target lacks under its ``RENAMES`` form, where
+    the target has that form."""
+    renamed = {}
+    for name, t in out.items():
+        if name not in own:
+            alt = name
+            for jax_name, ref_name in RENAMES:
+                alt = re.sub(r"(^|\.)" + re.escape(jax_name),
+                             r"\g<1>" + ref_name, alt)
+            if alt in own:
+                name = alt
+        renamed[name] = t
+    return renamed
 
 
 def _convert(params: Dict[str, Any], prefix: str,

@@ -216,3 +216,42 @@ def test_lookup_backward_kernel_matches_plain_on_card(radius, dtype):
         assert corr.corr_lookup_backward_kernel.launches == bwd + 1
         for g, a in zip(got, auto):
             torch.testing.assert_close(a, g, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(1, 55, 128), (2, 46, 62)])
+def test_flowformer_shaped_lookup_on_card(b, h, w):
+    """FlowFormer's lookup: one level holding each pixel's whole (H1, W1)
+    cost map, r = 4, at the eval shape of a 1024x436 pair (Q = 55*128) and
+    the training shape of two 368x496 crops (Q = 2*46*62).  The kernel
+    within 1e-5 of its plain version; the backward within 1e-5 of the
+    largest gradient, bitwise repeatable, and autograd through the
+    prepared lookup launches each kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    pyr, coords = _inputs(40 + h, b, h, w, h, w, c=256, levels=1, lo=-0.1,
+                          hi=1.1)
+    pyr = [p.cuda() for p in pyr]
+    coords = coords.cuda()
+    got = corr.make_corr_lookup(pyr, 4)(coords)
+    assert got.shape == (b, 81, h, w)
+    torch.testing.assert_close(
+        got, corr.corr_pyramid_lookup_plain(pyr, coords, 4), rtol=0,
+        atol=1e-5)
+    grad = torch.randn(got.shape, generator=torch.Generator().manual_seed(h)
+                       ).cuda()
+    first = corr.corr_lookup_backward_kernel(grad, coords, _shapes(pyr), 4)
+    again = corr.corr_lookup_backward_kernel(grad, coords, _shapes(pyr), 4)
+    want = corr.corr_pyramid_lookup_backward_plain(grad, coords,
+                                                   _shapes(pyr), 4)
+    torch.testing.assert_close(again[0], first[0], rtol=0, atol=0)
+    tol = 1e-5 * max(want[0].abs().max().item(), 1.0)
+    torch.testing.assert_close(first[0], want[0], rtol=0, atol=tol)
+    levels = [pyr[0].detach().requires_grad_()]
+    fwd = corr.corr_lookup_kernel.launches
+    bwd = corr.corr_lookup_backward_kernel.launches
+    auto = torch.autograd.grad(corr.make_corr_lookup(levels, 4)(coords),
+                               levels, grad)
+    assert corr.corr_lookup_kernel.launches == fwd + 1
+    assert corr.corr_lookup_backward_kernel.launches == bwd + 1
+    torch.testing.assert_close(auto[0], first[0], rtol=0, atol=0)

@@ -72,13 +72,17 @@ def test_port_sources_import_no_jax():
     assert not offenders
 
 
-PORTED = ["gma", "raft", "raft_small", "sea_raft", "sea_raft_l",
-          "sea_raft_m", "sea_raft_s"]
+PORTED = ["flowformer", "flowformer_pp", "gma", "raft", "raft_small",
+          "sea_raft", "sea_raft_l", "sea_raft_m", "sea_raft_s"]
 
 
 def test_registry():
+    """The ported names; the trainable ones are the JAX package's
+    trainable names among them (``flowformer_pp`` is not trainable)."""
     assert ptlflow_tpu_torch.get_model_names() == PORTED
-    assert ptlflow_tpu_torch.get_trainable_model_names() == PORTED
+    assert ptlflow_tpu_torch.get_trainable_model_names() == [
+        n for n in PORTED if n in ptlflow_tpu.get_trainable_model_names()]
+    assert "flowformer_pp" not in ptlflow_tpu_torch.get_trainable_model_names()
     assert ptlflow_tpu_torch.get_ptlflow_trained_model_names() == [
         "gma", "raft", "raft_small"]
     assert ptlflow_tpu_torch.get_model_reference("raft").__name__ == "raft"
