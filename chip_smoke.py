@@ -66,7 +66,21 @@ Phases, each of which must pass, else the script exits non-zero:
     largest of FF_TRAIN_BATCHES that fits, counting 32 lookups and 32
     backward lookups a step; and both kernels timed at FlowFormer's
     one-level shapes (phase 2 checks them there against their plain
-    versions).
+    versions);
+11. SKFlow, LCV-RAFT and LCV-RAFT-small (32 iterations), MemFlow and
+    MemFlow-T (15 decoder steps): serve 3 consecutive pairs of one
+    sequence at 436x1024, each warm-started from the last, counting one
+    lookup launch a step; stream 4 pairs with ``meta`` through
+    ``memflow``, whose memory must count 1, 2, 2, 2 frames; time and
+    profile each fp32 forward with its peak memory (the depthwise
+    convolutions and the softmaxes by kernel name) and ``memflow``'s
+    ``validate --bf16`` cast; the flows of all five at 256x320 on the card
+    against the CPU, and the ``memflow`` stream frame by frame; one train
+    step at 128x160 (2 steps) of ``skflow``, ``memflow`` and ``lcv_raft``
+    on both; and train steps of ``memflow`` at 368x496 at the largest of
+    SK_TRAIN_BATCHES that fits, counting 15 lookups and 15 backward
+    lookups a step.  Phase 2 checks both kernels on LCV-RAFT's pyramid at
+    128x160, whose last levels do not shrink.
 
 ``--against`` builds other versions of ``csrc/corr_lookup.cu`` (the same C
 interface) and times each in turns with the repo's kernel on the same
@@ -74,8 +88,8 @@ inputs (other, repo, repo, other), in the same run.
 
 The second-to-last line is ``{"kernels": [...]}``, the line before it the
 card's name and power limit (after ``{"harness": ...}``,
-``{"train_cli": ...}`` and ``{"flowformer": ...}``, phases 8-10's
-numbers), and the last line
+``{"train_cli": ...}``, ``{"flowformer": ...}`` and ``{"sk_family":
+...}``, phases 8-11's numbers), and the last line
 ``{"ok": true, "device": {...}}``.  With no card it prints no result and
 exits 2.
 """
@@ -146,6 +160,13 @@ FF_DEPTH = 32
 FF_TRAIN_SIZE = (432, 960)
 FF_TRAIN_BATCHES = (12, 8, 6, 4, 2)
 FF_TRAIN_STEPS = 4
+# Phase 11: SKFlow, LCV-RAFT (+small) and MemFlow (+T) at their registered
+# depths; MemFlow trained on 368x496 crops at the first of SK_TRAIN_BATCHES
+# that fits the card
+SK_SERVE = (("skflow", 32), ("lcv_raft", 32), ("lcv_raft_small", 32),
+            ("memflow", 15), ("memflow_t", 15))
+SK_TRAIN_BATCHES = (8, 6, 4, 2)
+SK_TRAIN_STEPS = 4
 # DeviceCompose, card against CPU on one Chairs sample, the same draws and
 # one noise field: float32 sums of the same few terms in another order
 ATOL_AUG_IMAGES, ATOL_AUG_FLOWS_PX = 1e-5, 1e-4
@@ -403,11 +424,45 @@ def calibrate_norms(torch, model, images) -> None:
 
 def flow_conv(model):
     """The convolution whose first two output channels are the flow step:
-    FlowFormer's flow head, or SEA-RAFT's, which also gives the info
-    channels."""
+    FlowFormer's flow head, SEA-RAFT's, which also gives the info
+    channels, the super-kernel flow head's last convolution (SKFlow,
+    MemFlow) or RAFT's (LCV-RAFT)."""
     if hasattr(model, "memory_decoder"):
         return model.memory_decoder.update_block.flow_head.conv2
-    return model.flow_head[2]
+    if hasattr(model, "flow_head"):
+        return model.flow_head[2]
+    head = getattr(model, "network", model).update_block.flow_head
+    return head.ffn2[2] if hasattr(head, "ffn2") else head.conv2
+
+
+def condition_super_kernel(torch, model) -> None:
+    """Random super-kernel blocks (SKFlow, MemFlow) multiply their input's
+    scale by ~4 each, so that two iterations at 64x96 step ~5e6 px: every
+    block's last convolution (``ffn2.2``) scaled by 0.2 and the flow
+    head's by 0.03 more, as ``tests/test_torch_skflow.py`` does (steps of
+    10-40 px that one rounding of the input moves by under 1e-4 px)."""
+    from ptlflow_tpu_torch.models.skflow.skflow import (
+        PCBlock4_Deep_nopool_res)
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, PCBlock4_Deep_nopool_res):
+                mod.ffn2[2].weight.mul_(0.2)
+                mod.ffn2[2].bias.mul_(0.2)
+        conv = flow_conv(model)
+        conv.weight.mul_(0.03)
+        conv.bias.mul_(0.03)
+
+
+def learned_metric(torch, model, seed: int) -> None:
+    """LCV-RAFT's metric far from the identity that its init gives (W = I
+    is RAFT's correlation): ``raw_P`` normal with std 0.3, ``raw_D``
+    standard normal, as ``tests/test_torch_lcv.py`` draws them."""
+    gen = torch.Generator().manual_seed(seed)
+    blk = getattr(model, "corr_block", model)
+    with torch.no_grad():
+        blk.raw_P.copy_(0.3 * torch.randn(blk.raw_P.shape, generator=gen))
+        blk.raw_D.copy_(torch.randn(blk.raw_D.shape, generator=gen))
 
 
 def condition_flowformer(torch, model) -> None:
@@ -440,9 +495,25 @@ def parity_weights(torch, name: str, model, images) -> None:
     channels by 0.1, each ConvNeXt block's ``final`` conv by 0.1 (random
     ones multiply the hidden state by ~2.5 a block, and nothing bounds it),
     and the norms calibrated on ``images``.  FlowFormer:
-    ``condition_flowformer``."""
+    ``condition_flowformer``.  SKFlow and MemFlow:
+    ``condition_super_kernel``, seeded norms and layer scales (the memory
+    readout's ``gamma`` among them).  LCV-RAFT: RAFT's flow head damped by
+    0.01 (32 iterations), seeded norms and ``learned_metric``."""
     if name.startswith("flowformer"):
         condition_flowformer(torch, model)
+        return
+    if name.startswith(("skflow", "memflow")):
+        condition_super_kernel(torch, model)
+        set_layer_scales(torch, model, 1)
+        randomise_norms(torch, model, 1)
+        return
+    if name.startswith("lcv"):
+        # 32 iterations: at RAFT's 0.03 two CPU runs one rounding of the
+        # input apart part by 0.02 px at 256x320 (lcv_raft_small), at 0.01
+        # by 6e-4
+        damp_flow_head(model, 0.01)
+        learned_metric(torch, model, 1)
+        randomise_norms(torch, model, 1)
         return
     if name.startswith("sea_raft"):
         set_layer_scales(torch, model, 1)
@@ -661,9 +732,21 @@ def main(argv=None) -> int:
     def randn(*shape):
         return torch.randn(*shape, generator=g).to(dev)
 
-    def case_inputs(b, h1, w1, h2, w2, c, lo, hi, levels=4):
+    def case_inputs(b, h1, w1, h2, w2, c, lo, hi, levels=4, lcv=None):
+        """A pyramid and coords; ``lcv`` = r: LCV-RAFT's first ``levels``
+        levels, whose pooling stops once a side is no larger than 2r + 1,
+        under a learned metric far from the identity."""
         f1, f2 = randn(b, c, h1, w1), randn(b, c, h2, w2)
-        pyr = corr.build_corr_pyramid(f1, f2, levels)
+        if lcv is None:
+            pyr = corr.build_corr_pyramid(f1, f2, levels)
+        else:
+            from ptlflow_tpu_torch.models.lcv.lcv_raft import (
+                LearnableCorrBlock)
+
+            blk = LearnableCorrBlock(c, levels, lcv)
+            learned_metric(torch, blk, 2)
+            with torch.no_grad():
+                pyr = blk.to(dev).compute_cost_volume(f1, f2)[:levels]
         u = torch.rand(b, 2, h1, w1, generator=g).to(dev)
         scale = torch.tensor([w2, h2], device=dev).view(1, 2, 1, 1)
         coords = (lo + (hi - lo) * u) * scale  # fractions of the map size
@@ -696,6 +779,13 @@ def main(argv=None) -> int:
          (1, -(-H // 32) * 4, wp, -(-H // 32) * 4, wp, 256, -0.1, 1.1, 1), 4,
          torch.float32),
     ]
+    # LCV-RAFT's pyramid at 128x160 (its card-vs-CPU train step's size):
+    # 16x20, 8x10, 8x10, 8x10 at r = 4 and 16x20, 8x10, 4x5, 4x5 at r = 3,
+    # the last levels unshrunk and read at coords / 2^l
+    cases += [(f"lcv 2x16x20, unshrunk levels, r={radius}",
+               (2, 16, 20, 16, 20, 256, -0.3, 1.3, 4, radius), radius, dtype)
+              for radius in (4, 3) for dtype in (torch.float32,
+                                                 torch.bfloat16)]
     far = torch.tensor([1e7, -1e7, 3.5, -2.5e6, 2.5], device=dev)
     main_err = None
     main_inputs = {}
@@ -703,6 +793,9 @@ def main(argv=None) -> int:
     for label, shape, radius, dtype in cases:
         pyr, coords = case_inputs(*shape)
         pyr = [p.to(dtype) for p in pyr]
+        if label.startswith("lcv") and (pyr[-1].shape != pyr[-2].shape):
+            raise AssertionError(f"{label}: levels "
+                                 f"{[tuple(p.shape[1:]) for p in pyr]}")
         if label.startswith("coords at"):
             coords[0, 0, 0, :5] = far
             coords[0, 1, 1, :5] = far.flip(0)
@@ -1191,6 +1284,15 @@ def main(argv=None) -> int:
              f"{TRAIN_H}, batch {ff['train']['batch']}"] = sum(
                  ff["train"]["lookup"])
 
+    # ---------------------------------------------------------------- 11
+    t11 = time.perf_counter()
+    sk = sk_family_phase(torch, dev, tag)
+    log(f"[11] {time.perf_counter() - t11:.1f} s")
+    launches.update(sk["launches"])
+    sk_train_path = (f"memflow train, {SK_TRAIN_STEPS} steps at {TRAIN_W}x"
+                     f"{TRAIN_H}, batch {sk['train']['batch']}")
+    launches[sk_train_path] = sum(sk["train"]["lookup"])
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -1235,7 +1337,10 @@ def main(argv=None) -> int:
         "launches_by_path": dict(
             {f"{name} train step at 128x160, 2 iters": check["launches"][1]
              for name, check in step_check.items()},
-            **{cli_path: cli_launches[1]}, **ff_bwd_launches),
+            **{cli_path: cli_launches[1]}, **ff_bwd_launches,
+            **{f"{name} train step at 128x160, 2 steps": check["launches"][1]
+               for name, check in sk["train_step_card_vs_cpu"].items()},
+            **{sk_train_path: sum(sk["train"]["lookup_backward"])}),
         "max_abs_err": bwd_err,
         "max_abs_grad": bwd_gmax,
         "ms": bwd_ms,
@@ -1259,6 +1364,7 @@ def main(argv=None) -> int:
     log(json.dumps({"train_cli": train_cli}))
     log(json.dumps({"flowformer": {k: v for k, v in ff.items()
                                    if k != "kernels"}, "card": tag}))
+    log(json.dumps({"sk_family": sk, "card": tag}))
     log(tag)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1748,7 +1854,7 @@ def train_cli_phase(torch, dev, tag: str, work: str, bare_step_ms: float
     return out
 
 
-def ff_served(torch, name: str, images, args=None):
+def conditioned_served(torch, name: str, images, args=None):
     """``get_model(name)`` on the card at its registered depth, its seeded
     weights conditioned (``parity_weights``) and damped to flows of
     trained size on ``images`` (``damp_to_served_size``)."""
@@ -1769,6 +1875,121 @@ def check_flows(torch, name: str, out, shape) -> None:
     if any(v.grad_fn is not None for v in out.values()):
         raise AssertionError(f"{name}: the eval forward built an autograd "
                              f"graph")
+
+
+def train_at_largest_batch(torch, dev, tag: str, model, tx, batch_sizes,
+                           n_steps: int, depth: int, label: str,
+                           phase: int) -> dict:
+    """``n_steps`` train steps of ``model`` at TRAIN_H x TRAIN_W through
+    ``build_train_step`` with optimizer ``tx``, at the first of
+    ``batch_sizes`` that fits the card (a batch that runs out of memory is
+    logged and the next tried), each on its own seeded synthetic batch,
+    timed by CUDA events, with ``depth`` launches of each lookup kernel a
+    step asserted; then one step profiled.  Returns the per-step ms, loss
+    and launches, the median of steps 2 on, samples/s, the peak memory and
+    that above what was allocated before the first step, and the
+    profile."""
+    from ptlflow_tpu_torch.ops import correlation as corr
+    from ptlflow_tpu_torch.parallel import train as ttrain
+
+    step = ttrain.build_train_step(model, tx)
+    state = ttrain.create_train_state(model, tx)
+    train = None
+    for b in batch_sizes:
+        batches = [train_batch(torch, 300 + k, b, TRAIN_H, TRAIN_W, dev)
+                   for k in range(n_steps)]
+        rec = {"batch": b, "step_ms": [], "loss": [], "lookup": [],
+               "lookup_backward": []}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            for batch in batches:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                corr.corr_lookup_kernel.launches = 0
+                corr.corr_lookup_backward_kernel.launches = 0
+                start.record()
+                state, metrics = step(state, batch)
+                end.record()
+                end.synchronize()
+                rec["step_ms"].append(start.elapsed_time(end))
+                rec["loss"].append(metrics["loss"].item())
+                rec["lookup"].append(corr.corr_lookup_kernel.launches)
+                rec["lookup_backward"].append(
+                    corr.corr_lookup_backward_kernel.launches)
+        except torch.cuda.OutOfMemoryError:
+            log(f"[{phase} train] batch {b} does not fit in "
+                f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}"
+                f" GiB; trying the next")
+            del batches, rec
+            torch.cuda.empty_cache()
+            continue
+        train = rec
+        break
+    if train is None:
+        raise AssertionError(f"no {label} training batch fits")
+    for k, (ms, loss, nf, nb) in enumerate(zip(
+            train["step_ms"], train["loss"], train["lookup"],
+            train["lookup_backward"])):
+        log(f"[{phase} train] [{tag}] {label} step {k + 1}, batch "
+            f"{train['batch']}: loss {loss:.5f}, {ms:.3f} ms by CUDA events, "
+            f"{nf} lookup and {nb} backward launches")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{label} train step {k + 1}: non-finite "
+                                 f"loss")
+        if (nf, nb) != (depth, depth):
+            raise AssertionError(f"{label} train step {k + 1}: expected "
+                                 f"{depth} launches of each kernel")
+    later = sorted(train["step_ms"][1:])
+    train["median_step_ms"] = later[len(later) // 2]
+    train["samples_per_s"] = train["batch"] / train["median_step_ms"] * 1e3
+    train["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    train["steps_gib"] = train["peak_gib"] - base / 2 ** 30
+    th, tw = -(-TRAIN_H // 8), -(-TRAIN_W // 8)
+    train["profile"] = profile_train_step(
+        torch, step, state, batches[-1], [(train["batch"] * th * tw, th, tw)],
+        tag, train["median_step_ms"], label=label, phase=phase)
+    log(f"[{phase} train] [{tag}] {label} {TRAIN_W}x{TRAIN_H}, batch "
+        f"{train['batch']}, {depth} steps of the decoder, fp32 (TF32 off): "
+        f"{train['median_step_ms']:.3f} ms per step (median of steps "
+        f"2-{n_steps}), {train['samples_per_s']:.2f} samples/s, peak "
+        f"{train['peak_gib']:.2f} GiB allocated, {train['steps_gib']:.2f} GiB "
+        f"above what the model, its optimizer state, the batches and earlier "
+        f"phases held before the first step")
+    return train
+
+
+def time_forward(torch, model, images, label: str, tag: str, depth: str,
+                 phase: int, out: dict, kernel_names=None) -> None:
+    """The eval forward of ``images``: 3 warm-ups, then the median of 3
+    runs of 10 forwards by CUDA events; the peak memory of one forward,
+    and above what was allocated before it (the model, and what earlier
+    phases still hold); a profile (``profile_forward``, with the kernel
+    times by ``kernel_names``).  Written into ``out`` under ``label``."""
+    for _ in range(3):
+        model({"images": images})
+    runs = sorted(timed_ms(torch, lambda: model({"images": images}), 10)
+                  for _ in range(3))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model({"images": images})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out["forward_ms"][label] = runs[1]
+    out["forward_runs_ms"][label] = runs
+    out["peak_gib"][label] = peak / 2 ** 30
+    out["forward_gib"][label] = (peak - base) / 2 ** 30
+    log(f"[{phase} forward] [{tag}] {label}, {W}x{H}, {depth}: "
+        f"{runs[1]:.3f} ms/forward, {1e3 / runs[1]:.2f} fps (median of 3 "
+        f"runs of 10 forwards: {', '.join(f'{r:.3f}' for r in runs)} ms); "
+        f"peak {peak / 2 ** 30:.2f} GiB allocated, "
+        f"{(peak - base) / 2 ** 30:.2f} GiB above the "
+        f"{base / 2 ** 30:.2f} GiB allocated before the forward")
+    out["profile"][label] = profile_forward(
+        torch, model, images, label, tag, runs[1], phase=phase,
+        kernel_names=kernel_names)
 
 
 def flowformer_phase(torch, dev, tag: str, ff_lookup) -> dict:
@@ -1792,7 +2013,7 @@ def flowformer_phase(torch, dev, tag: str, ff_lookup) -> dict:
     frames = smooth_frames(31, H, W, 4, shift=(2, 1))
     calib = IOAdapter(device=dev).prepare_inputs(frames[:2])["images"]
     for name in FF_SERVE:
-        model = ff_served(torch, name, calib)
+        model = conditioned_served(torch, name, calib)
         adapter = IOAdapter(model)
         corr.corr_lookup_kernel.launches = 0
         prev = None
@@ -1824,37 +2045,13 @@ def flowformer_phase(torch, dev, tag: str, ff_lookup) -> dict:
                 served = copy.deepcopy(model)
                 if not cast_to_bf16(served, name):
                     raise AssertionError(f"{name}: not on the allow-list")
-            label = f"{name} {mode}"
-            for _ in range(3):
-                served({"images": images})
-            runs = sorted(timed_ms(torch, lambda: served({"images": images}),
-                                   10) for _ in range(3))
-            # the peak of one forward, and above what was allocated before
-            # it (the model, and what earlier phases still hold)
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            served({"images": images})
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated()
-            out["forward_ms"][label] = runs[1]
-            out["forward_runs_ms"][label] = runs
-            out["peak_gib"][label] = peak / 2 ** 30
-            out["forward_gib"][label] = (peak - base) / 2 ** 30
-            log(f"[10 forward] [{tag}] {label}, {W}x{H}, {FF_DEPTH} decoder "
-                f"steps: {runs[1]:.3f} ms/forward, {1e3 / runs[1]:.2f} fps "
-                f"(median of 3 runs of 10 forwards: "
-                f"{', '.join(f'{r:.3f}' for r in runs)} ms); peak "
-                f"{peak / 2 ** 30:.2f} GiB allocated, "
-                f"{(peak - base) / 2 ** 30:.2f} GiB above the "
-                f"{base / 2 ** 30:.2f} GiB allocated before the forward")
-            out["profile"][label] = profile_forward(
-                torch, served, images, label, tag, runs[1], phase=10)
+            time_forward(torch, served, images, f"{name} {mode}", tag,
+                         f"{FF_DEPTH} decoder steps", 10, out)
             del served
         del model
 
     # the tiled forward at FlowFormer's Sintel crop: tiles at (0|4, 0|64)
-    model = ff_served(torch, "flowformer", calib)
+    model = conditioned_served(torch, "flowformer", calib)
     model.train_size = FF_TRAIN_SIZE
     model.tile_height = FF_TRAIN_SIZE[0]
     corr.corr_lookup_kernel.launches = 0
@@ -1904,73 +2101,11 @@ def flowformer_phase(torch, dev, tag: str, ff_lookup) -> dict:
     condition_flowformer(torch, model)
     tx = ttrain.make_optimizer(lr=2.5e-4, wdecay=1e-4, total_steps=120000,
                                pct_start=0.05, grad_clip=1.0)
-    step = ttrain.build_train_step(model, tx)
-    state = ttrain.create_train_state(model, tx)
-    train = None
-    for b in FF_TRAIN_BATCHES:
-        batches = [train_batch(torch, 300 + k, b, TRAIN_H, TRAIN_W, dev)
-                   for k in range(FF_TRAIN_STEPS)]
-        rec = {"batch": b, "step_ms": [], "loss": [], "lookup": [],
-               "lookup_backward": []}
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            for batch in batches:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                corr.corr_lookup_kernel.launches = 0
-                corr.corr_lookup_backward_kernel.launches = 0
-                start.record()
-                state, metrics = step(state, batch)
-                end.record()
-                end.synchronize()
-                rec["step_ms"].append(start.elapsed_time(end))
-                rec["loss"].append(metrics["loss"].item())
-                rec["lookup"].append(corr.corr_lookup_kernel.launches)
-                rec["lookup_backward"].append(
-                    corr.corr_lookup_backward_kernel.launches)
-        except torch.cuda.OutOfMemoryError:
-            log(f"[10 train] batch {b} does not fit in "
-                f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}"
-                f" GiB; trying the next")
-            del batches, rec
-            torch.cuda.empty_cache()
-            continue
-        train = rec
-        break
-    if train is None:
-        raise AssertionError("no FlowFormer training batch fits")
-    for k, (ms, loss, nf, nb) in enumerate(zip(
-            train["step_ms"], train["loss"], train["lookup"],
-            train["lookup_backward"])):
-        log(f"[10 train] [{tag}] flowformer step {k + 1}, batch "
-            f"{train['batch']}: loss {loss:.5f}, {ms:.3f} ms by CUDA events, "
-            f"{nf} lookup and {nb} backward launches")
-        if not math.isfinite(loss):
-            raise AssertionError(f"flowformer train step {k + 1}: non-finite "
-                                 f"loss")
-        if (nf, nb) != (FF_DEPTH, FF_DEPTH):
-            raise AssertionError(f"flowformer train step {k + 1}: expected "
-                                 f"{FF_DEPTH} launches of each kernel")
-    later = sorted(train["step_ms"][1:])
-    train["median_step_ms"] = later[len(later) // 2]
-    train["samples_per_s"] = train["batch"] / train["median_step_ms"] * 1e3
-    train["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    train["steps_gib"] = train["peak_gib"] - base / 2 ** 30
+    out["train"] = train = train_at_largest_batch(
+        torch, dev, tag, model, tx, FF_TRAIN_BATCHES, FF_TRAIN_STEPS,
+        FF_DEPTH, "flowformer", 10)
     th, tw = -(-TRAIN_H // 8), -(-TRAIN_W // 8)
-    train["profile"] = profile_train_step(
-        torch, step, state, batches[-1], [(train["batch"] * th * tw, th, tw)],
-        tag, train["median_step_ms"], label="flowformer", phase=10)
-    out["train"] = train
-    log(f"[10 train] [{tag}] flowformer {TRAIN_W}x{TRAIN_H}, batch "
-        f"{train['batch']}, {FF_DEPTH} decoder steps, fp32 (TF32 off): "
-        f"{train['median_step_ms']:.3f} ms per step (median of steps "
-        f"2-{FF_TRAIN_STEPS}), {train['samples_per_s']:.2f} samples/s, peak "
-        f"{train['peak_gib']:.2f} GiB allocated, {train['steps_gib']:.2f} GiB "
-        f"above what the model, its optimizer state, the batches and earlier "
-        f"phases held before the first step")
-    del model, state, step, batches
+    del model
 
     # both kernels at FlowFormer's shapes, L2 flushed before each launch
     flush = flushes(torch, dev)["dirty"]
@@ -2037,12 +2172,174 @@ def flowformer_phase(torch, dev, tag: str, ff_lookup) -> dict:
     return out
 
 
+def memflow_stream(model, adapter, frames, check=None):
+    """The consecutive pairs of ``frames`` through ``model``'s stateful
+    forward with ``meta``: the first starts the sequence, none ends it, so
+    each writes the memory.  Returns each pair's flows, the memory's count
+    after it and the lookup launches of its forward; ``check`` is called
+    on each pair's outputs."""
+    from ptlflow_tpu_torch.ops import correlation as corr
+
+    flows, counts, launches = [], [], []
+    for k in range(len(frames) - 1):
+        x = adapter.prepare_inputs(frames[k:k + 2])
+        x["meta"] = {"is_seq_start": k == 0, "is_seq_end": False}
+        before = corr.corr_lookup_kernel.launches
+        res = model(x)
+        if check is not None:
+            check(res)
+        flows.append(res["flows"])
+        counts.append(model._memory["count"])
+        launches.append(corr.corr_lookup_kernel.launches - before)
+    return flows, counts, launches
+
+
+def sk_family_phase(torch, dev, tag: str) -> dict:
+    """Phase 11: SKFlow, LCV-RAFT (+small) and MemFlow (+T) on the card at
+    their registered depths (SK_SERVE).  Serves 3 consecutive pairs of one
+    sequence at H x W, each warm-started from the last, with one lookup
+    launch a decoder step and no autograd graph; streams 4 frames with
+    ``meta`` through ``memflow``, whose memory must count 1, 2, 2, 2
+    frames; times and profiles each fp32 forward (the depthwise
+    convolutions and the softmaxes by name) and ``memflow``'s ``validate
+    --bf16`` cast; holds the card against the CPU at 256x320 (the
+    ``memflow`` stream frame by frame) and one train step at 128x160 of
+    ``skflow``, ``memflow`` and ``lcv_raft``; trains ``memflow`` at
+    TRAIN_H x TRAIN_W at the first of SK_TRAIN_BATCHES that fits."""
+    import copy
+
+    import ptlflow_tpu_torch
+    from ptlflow_tpu_torch.ops import correlation as corr
+    from ptlflow_tpu_torch.parallel import train as ttrain
+    from ptlflow_tpu_torch.scripts.validate import cast_to_bf16
+    from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+
+    out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
+           "peak_gib": {}, "forward_gib": {}, "launches": {},
+           "card_vs_cpu_px": {}}
+    named = {"depthwise conv": "depthwise", "softmax": "softmax"}
+    # consecutive frames of one sequence moving (2, 1) px a frame
+    frames = smooth_frames(41, H, W, 5, shift=(2, 1))
+    calib = IOAdapter(device=dev).prepare_inputs(frames[:2])["images"]
+    for name, depth in SK_SERVE:
+        t0 = time.perf_counter()
+        model = conditioned_served(torch, name, calib)
+        adapter = IOAdapter(model)
+        corr.corr_lookup_kernel.launches = 0
+        prev = None
+        for k in range(3):
+            x = adapter.prepare_inputs(frames[k:k + 2])
+            if prev is not None:
+                x["prev_preds"] = {"flow_small": prev}
+            before = corr.corr_lookup_kernel.launches
+            res = model(x)
+            torch.cuda.synchronize()
+            n = corr.corr_lookup_kernel.launches - before
+            check_flows(torch, name, adapter.unscale(res), (1, 1, 2, H, W))
+            if n != depth:
+                raise AssertionError(f"{name}: {n} lookup launches in one "
+                                     f"forward, expected {depth}")
+            mean = res["flows"].mean(dim=(0, 1, 3, 4)).tolist()
+            log(f"[11 serve] {name} pair {k} at {W}x{H}"
+                f"{', warm-started' if prev is not None else ''}: flows "
+                f"finite, no grad_fn, mean ({mean[0]:.3f}, {mean[1]:.3f}) "
+                f"px (true motion 2, 1), {n} lookup launches")
+            prev = res["flow_small"]
+        out["launches"][f"{name} serve, 3 pairs warm-started"] = \
+            corr.corr_lookup_kernel.launches
+
+        time_forward(torch, model, x["images"], f"{name} fp32", tag,
+                     f"{depth} steps", 11, out, named)
+        if name == "memflow":
+            # the memory stream at full size: 4 pairs with meta
+            corr.corr_lookup_kernel.launches = 0
+            flows, counts, n = memflow_stream(
+                model, adapter, frames,
+                lambda r: check_flows(torch, name, r, (1, 1, 2, H, W)))
+            torch.cuda.synchronize()
+            if counts != [1, 2, 2, 2] or n != [depth] * 4:
+                raise AssertionError(f"memflow stream: counts {counts}, "
+                                     f"launches {n}")
+            out["stream_counts"] = counts
+            out["launches"]["memflow stream, 4 pairs with meta"] = sum(n)
+            log(f"[11 stream] memflow, 4 consecutive pairs at {W}x{H} with "
+                f"meta: memory count {counts} after each, {n} lookup "
+                f"launches, mean |flow| "
+                f"{[round(f.norm(dim=2).mean().item(), 3) for f in flows]} "
+                f"px")
+            model.clear_memory()
+            # validate --bf16: memflow is on the allow-list
+            cast = copy.deepcopy(model)
+            if not cast_to_bf16(cast, name):
+                raise AssertionError(f"{name}: not on the allow-list")
+            time_forward(torch, cast, x["images"], f"{name} bf16 cast", tag,
+                         f"{depth} steps", 11, out, named)
+            del cast
+        log(f"[11 serve] {name}: {time.perf_counter() - t0:.1f} s with its "
+            f"timing")
+        del model, res, prev
+
+    # card against CPU at 256x320, the registered depths
+    seq = smooth_frames(7, 256, 320, 5, shift=(3, 2))
+    for name, depth in SK_SERVE:
+        cpu_model = ptlflow_tpu_torch.get_model(name, device="cpu")
+        x = IOAdapter(cpu_model).prepare_inputs(seq[:2])
+        parity_weights(torch, name, cpu_model, x["images"])
+        gpu_model = ptlflow_tpu_torch.get_model(name)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        want = cpu_model(x)["flows"]
+        got = gpu_model({"images": x["images"].to(dev)})["flows"].cpu()
+        diff = (got - want).abs().max().item()
+        out["card_vs_cpu_px"][name] = diff
+        log(f"[11 card vs cpu] {name} 256x320, {depth} steps: max |dflow| "
+            f"{diff:.3e} px (flow up to {want.abs().max().item():.2f} px, "
+            f"tolerance {ATOL_CARD_CPU_PX} px)")
+        if not diff <= ATOL_CARD_CPU_PX:
+            raise AssertionError(f"{name}: card and CPU differ by {diff} px")
+        if name == "memflow":
+            cpu_model.clear_memory()
+            gpu_model.clear_memory()
+            want, cpu_counts, _ = memflow_stream(
+                cpu_model, IOAdapter(cpu_model), seq)
+            got, counts, _ = memflow_stream(gpu_model, IOAdapter(gpu_model),
+                                            seq)
+            diffs = [(g.cpu() - w).abs().max().item()
+                     for g, w in zip(got, want)]
+            out["card_vs_cpu_px"]["memflow stream"] = diffs
+            log(f"[11 card vs cpu] memflow stream, 4 pairs at 256x320: max "
+                f"|dflow| {', '.join(f'{d:.3e}' for d in diffs)} px, memory "
+                f"count {counts} on the card, {cpu_counts} on the CPU")
+            if counts != cpu_counts or not max(diffs) <= ATOL_CARD_CPU_PX:
+                raise AssertionError(f"memflow stream: card and CPU differ "
+                                     f"by {diffs} px, counts {counts}")
+        del cpu_model, gpu_model
+    out["train_step_card_vs_cpu"] = {
+        name: train_step_card_vs_cpu(torch, name, dev, args)
+        for name, args in (("skflow", {"iters": 2}),
+                           ("memflow", {"decoder_depth": 2}),
+                           ("lcv_raft", {"iters": 2}))}
+
+    # memflow's train steps at 368x496 (FlowFormer's optimizer of phase 10)
+    model = ptlflow_tpu_torch.get_model("memflow")
+    condition_super_kernel(torch, model)
+    tx = ttrain.make_optimizer(lr=2.5e-4, wdecay=1e-4, total_steps=120000,
+                               pct_start=0.05, grad_clip=1.0)
+    out["train"] = train_at_largest_batch(
+        torch, dev, tag, model, tx, SK_TRAIN_BATCHES, SK_TRAIN_STEPS,
+        dict(SK_SERVE)["memflow"], "memflow", 11)
+    del model
+    return out
+
+
 def profile_forward(torch, model, images, label: str, tag: str,
-                    event_ms: float, phase: int = 5) -> dict:
+                    event_ms: float, phase: int = 5,
+                    kernel_names=None) -> dict:
     """Device time by kernel over one forward (torch.profiler): busy ms,
     launches, idle share against the unprofiled ``event_ms``, the lookup's
-    share and the top kernels.  A first profiled forward absorbs the
-    tracer's start-up and is not read."""
+    share, the top kernels and, for each ``kernel_names`` entry (label:
+    substring), the ms and launches of the kernels whose name holds the
+    substring (any case).  A first profiled forward absorbs the tracer's
+    start-up and is not read."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -2075,9 +2372,15 @@ def profile_forward(torch, model, images, label: str, tag: str,
         f"({lookup / busy:.1%} of kernel time)")
     for ms, count, key in rows[:12]:
         log(f"  {ms:9.3f} ms  {count:5d}x  {key[:100]}")
+    by_name = {}
+    for name, sub in (kernel_names or {}).items():
+        hits = [r for r in rows if sub.lower() in r[2].lower()]
+        by_name[name] = [sum(r[0] for r in hits), sum(r[1] for r in hits)]
+        log(f"  {name} (kernels named *{sub}*): {by_name[name][0]:.3f} ms in "
+            f"{by_name[name][1]} launches ({by_name[name][0] / busy:.1%})")
     return {"busy_ms": busy, "launches": launches, "wall_ms": wall_ms,
             "idle": 1 - busy / event_ms, "lookup_ms": lookup,
-            "lookup_share": lookup / busy,
+            "lookup_share": lookup / busy, "by_name": by_name,
             "top": [[ms, n, key[:80]] for ms, n, key in rows[:8]]}
 
 

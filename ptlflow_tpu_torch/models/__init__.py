@@ -1,3 +1,4 @@
 """Model families of the PyTorch port; importing registers them."""
 
-from . import flowformer, flowformerplusplus, gma, raft, sea_raft  # noqa: F401
+from . import (flowformer, flowformerplusplus, gma, lcv,  # noqa: F401
+               memflow, raft, sea_raft, skflow)

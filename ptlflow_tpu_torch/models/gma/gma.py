@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ...nn import CastConv2d
 from ...utils.registry import ptlflow_trained, register_model, trainable
 from ..raft.extractor import BasicEncoder
 from ..raft.raft import RAFT
@@ -34,8 +35,8 @@ class GMAUpdateBlock(nn.Module):
                               input_dim=128 + hidden_dim + hidden_dim)
         self.flow_head = FlowHead(hidden_dim, hidden_dim=256)
         self.mask = nn.Sequential(
-            nn.Conv2d(128, 256, 3, padding=1), nn.ReLU(),
-            nn.Conv2d(256, 64 * 9, 1, padding=0))
+            CastConv2d(128, 256, 3, padding=1), nn.ReLU(),
+            CastConv2d(256, 64 * 9, 1, padding=0))
         self.aggregator = Aggregate(dim=128, dim_head=128, heads=num_heads)
 
     def forward(self, net, inp, corr, flow, attention):
@@ -50,6 +51,7 @@ class GMAUpdateBlock(nn.Module):
 
 
 class GMA(RAFT):
+    fp32_only = True
     pretrained_checkpoints = {
         "chairs": "https://github.com/hmorimitsu/ptlflow/releases/download/weights1/gma-chairs-d4ec321d.ckpt",
         "things": "https://github.com/hmorimitsu/ptlflow/releases/download/weights1/gma-things-90aafb63.ckpt",
@@ -65,17 +67,15 @@ class GMA(RAFT):
                  alternate_corr: bool = False,
                  corr_dtype: Optional[str] = None,
                  mixed_precision: bool = False, **kwargs):
-        if corr_dtype is not None or mixed_precision:
-            raise ValueError("GMA computes in fp32 only, as the JAX "
-                             "package's GMA: no mixed_precision or "
-                             "corr_dtype")
         # plain attributes, set before RAFT.__init__ calls _build
         self.num_heads = num_heads
         self.position_only = position_only
         self.position_and_content = position_and_content
         super().__init__(corr_levels=corr_levels, corr_radius=corr_radius,
                          dropout=dropout, gamma=gamma, max_flow=max_flow,
-                         iters=iters, alternate_corr=alternate_corr, **kwargs)
+                         iters=iters, alternate_corr=alternate_corr,
+                         corr_dtype=corr_dtype,
+                         mixed_precision=mixed_precision, **kwargs)
 
     def _build(self):
         self.fnet = BasicEncoder(output_dim=256, norm_fn="instance",

@@ -13,7 +13,7 @@ correlation is queued in ROADMAP.md.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -57,6 +57,11 @@ class SequenceLoss:
 
 
 class RAFT(BaseModel):
+    # BGR -> RGB in preprocessing (LCV-RAFT keeps BGR, as its reference does)
+    bgr_to_rgb = True
+    # refuse mixed_precision and corr_dtype: the JAX package's model computes
+    # in fp32 whatever it is given (GMA, SKFlow, LCV-RAFT)
+    fp32_only = False
     pretrained_checkpoints = {
         "chairs": "https://github.com/hmorimitsu/ptlflow/releases/download/weights1/raft-chairs-590f38f7.ckpt",
         "things": "https://github.com/hmorimitsu/ptlflow/releases/download/weights1/raft-things-802bbcfd.ckpt",
@@ -70,6 +75,10 @@ class RAFT(BaseModel):
                  alternate_corr: bool = False,
                  corr_dtype: Optional[str] = None,
                  mixed_precision: bool = False, **kwargs):
+        if self.fp32_only and (corr_dtype is not None or mixed_precision):
+            raise ValueError(f"{type(self).__name__} computes in fp32 only, "
+                             f"as the JAX package's does: no "
+                             f"mixed_precision or corr_dtype")
         super().__init__(output_stride=8,
                          loss_fn=SequenceLoss(gamma, max_flow), **kwargs)
         if corr_dtype not in _DTYPES:
@@ -109,6 +118,11 @@ class RAFT(BaseModel):
         once per forward from the context features: none for RAFT."""
         return ()
 
+    def _corr_pyramid(self, fmap1: torch.Tensor, fmap2: torch.Tensor,
+                      dtype: Optional[torch.dtype]) -> List[torch.Tensor]:
+        """The levels that the lookup samples: RAFT's pyramid."""
+        return build_corr_pyramid(fmap1, fmap2, self.corr_levels, dtype=dtype)
+
     def _forward(self, inputs: Dict[str, Any],
                  training: bool) -> Dict[str, torch.Tensor]:
         """Eval: ``flows`` (B, 1, 2, H, W) and ``flow_small`` (B, 2, H/8,
@@ -123,8 +137,9 @@ class RAFT(BaseModel):
         package stops their gradient.  ``BaseModel.forward`` sets the
         modes."""
         images, image_resizer = self.preprocess_images(
-            inputs["images"], bgr_add=-0.5, bgr_mult=2.0, bgr_to_rgb=True,
-            resize_mode="pad", pad_mode="replicate", pad_two_side=True)
+            inputs["images"], bgr_add=-0.5, bgr_mult=2.0,
+            bgr_to_rgb=self.bgr_to_rgb, resize_mode="pad",
+            pad_mode="replicate", pad_two_side=True)
         image1, image2 = images[:, 0], images[:, 1]
 
         corr_dtype = _DTYPES[self.corr_dtype]
@@ -135,9 +150,8 @@ class RAFT(BaseModel):
 
         fmap1 = self.fnet(image1)
         fmap2 = self.fnet(image2)
-        pyramid = build_corr_pyramid(fmap1, fmap2, self.corr_levels,
-                                     dtype=corr_dtype)
-        corr_lookup = make_corr_lookup(pyramid, self.corr_radius)
+        corr_lookup = make_corr_lookup(
+            self._corr_pyramid(fmap1, fmap2, corr_dtype), self.corr_radius)
 
         cnet = self.cnet(image1)
         net = torch.tanh(cnet[:, :self.hidden_dim])

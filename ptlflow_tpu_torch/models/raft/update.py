@@ -6,10 +6,10 @@ The motion encoders' correlation convolutions run in the correlation's
 dtype (``CastConv2d``), as in the JAX package: a bfloat16 lookup output
 stays bfloat16 through ``convc1``/``convc2`` and is promoted to float32
 where it is concatenated with the float32 flow features.
-FlowHead, SepConvGRU and BasicMotionEncoder cast every weight to their
-input's dtype, so a FlowFormer whose weights ``validate --bf16`` cast to
-bfloat16 runs them as the JAX package does; on weights of the input's
-dtype this casts nothing.
+Every convolution casts its weights to its input's dtype, so a model whose
+weights ``validate --bf16`` or ``infer --bf16`` cast to bfloat16 runs them
+as the JAX package does; on weights of the input's dtype this casts
+nothing.
 The JAX package runs the z and r convolutions of the GRU as one fused
 convolution to read the GRU input once on the TPU; here they are the two
 separate convolutions of the reference, which is the same math.
@@ -36,9 +36,12 @@ class FlowHead(nn.Module):
 class ConvGRU(nn.Module):
     def __init__(self, hidden_dim=128, input_dim=192 + 128):
         super().__init__()
-        self.convz = nn.Conv2d(hidden_dim + input_dim, hidden_dim, 3, padding=1)
-        self.convr = nn.Conv2d(hidden_dim + input_dim, hidden_dim, 3, padding=1)
-        self.convq = nn.Conv2d(hidden_dim + input_dim, hidden_dim, 3, padding=1)
+        self.convz = CastConv2d(hidden_dim + input_dim, hidden_dim, 3,
+                                padding=1)
+        self.convr = CastConv2d(hidden_dim + input_dim, hidden_dim, 3,
+                                padding=1)
+        self.convq = CastConv2d(hidden_dim + input_dim, hidden_dim, 3,
+                                padding=1)
 
     def forward(self, h, x):
         hx = torch.cat([h, x], dim=1)
@@ -77,9 +80,9 @@ class SmallMotionEncoder(nn.Module):
         super().__init__()
         cor_planes = corr_levels * (2 * corr_radius + 1) ** 2
         self.convc1 = CastConv2d(cor_planes, 96, 1, padding=0)
-        self.convf1 = nn.Conv2d(2, 64, 7, padding=3)
-        self.convf2 = nn.Conv2d(64, 32, 3, padding=1)
-        self.conv = nn.Conv2d(128, 80, 3, padding=1)
+        self.convf1 = CastConv2d(2, 64, 7, padding=3)
+        self.convf2 = CastConv2d(64, 32, 3, padding=1)
+        self.conv = CastConv2d(128, 80, 3, padding=1)
 
     def forward(self, flow, corr):
         cor = torch.relu(self.convc1(corr))
@@ -132,8 +135,8 @@ class BasicUpdateBlock(nn.Module):
                               input_dim=128 + hidden_dim)
         self.flow_head = FlowHead(hidden_dim, hidden_dim=256)
         self.mask = nn.Sequential(
-            nn.Conv2d(128, 256, 3, padding=1), nn.ReLU(),
-            nn.Conv2d(256, 64 * 9, 1, padding=0))
+            CastConv2d(128, 256, 3, padding=1), nn.ReLU(),
+            CastConv2d(256, 64 * 9, 1, padding=0))
 
     def forward(self, net, inp, corr, flow):
         motion_features = self.encoder(flow, corr)

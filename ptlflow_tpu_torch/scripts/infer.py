@@ -17,10 +17,16 @@ from pathlib import Path
 from typing import Iterator, List, Tuple
 
 import numpy as np
+import torch
 
+import ptlflow_tpu_torch
+from ptlflow_tpu_torch.nn import cast_params
+from ptlflow_tpu_torch.scripts.validate import has_mixed_mode
 from ptlflow_tpu_torch.utils import flow_io, image_io
 from ptlflow_tpu_torch.utils.cli import (add_common_model_args, load_config,
-                                         model_from_args, parse_with_config)
+                                         model_from_args,
+                                         model_name_from_args,
+                                         parse_with_config)
 from ptlflow_tpu_torch.utils.flow_viz import flow_to_rgb
 from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
 
@@ -52,7 +58,8 @@ def _parse_args(argv=None):
                         help="display each result: not available in the "
                         "port (no OpenCV window)")
     parser.add_argument("--bf16", action="store_true",
-                        help="the model's mixed_precision mode")
+                        help="the model's mixed_precision mode; a model "
+                        "without one gets its weights cast to bf16")
     return parse_with_config(parser, argv)
 
 
@@ -81,10 +88,15 @@ def infer(args) -> List[Path]:
     if args.show:
         raise NotImplementedError("--show needs a display window (OpenCV's "
                                   "highgui), which the port does not use")
-    init_args = {"mixed_precision": True} if args.bf16 else None
-    model, name = model_from_args(args, load_config(args), init_args)
-    if args.bf16 and not getattr(model, "mixed_precision", False):
-        raise ValueError(f"--bf16: {name} has no mixed-precision mode")
+    cfg = load_config(args)
+    mixed = args.bf16 and has_mixed_mode(
+        ptlflow_tpu_torch.get_model_reference(model_name_from_args(args, cfg)))
+    model, _ = model_from_args(args, cfg,
+                               {"mixed_precision": True} if mixed else None)
+    if args.bf16 and not mixed:
+        # as the JAX infer.py does: the weights cast to bfloat16, every one
+        # (no allow-list); each layer casts them back to its input's dtype
+        cast_params(model, torch.bfloat16)
 
     in_size = args.input_size or [0, 0]
     target_size = tuple(in_size) if min(in_size) > 0 else None

@@ -11,10 +11,11 @@ embedding table, which the JAX package stores as torch does.  Given the
 target, the result also holds what the JAX tree drops and a strict load
 needs: a second name of a tensor the target registers twice (SEA-RAFT's
 ``bn3`` is also ``downsample.1``) and the buffers the JAX package rebuilds
-on every call (GMA's ``rel_ind``), and the reference's names where the
-JAX package renames a tensor and its ``from_torch`` undoes the rename
-(``RENAMES``: FlowFormer's FFNs, whose reference ``Sequential`` holds
-dropouts at indices 2 and 4, and its decoder's nested cross-attention).
+on every call (GMA's ``rel_ind``, LCV-RAFT's ``corr_block.eye``), and the
+reference's names where the JAX package renames a tensor and its
+``from_torch`` undoes the rename (``RENAMES``: FlowFormer's FFNs, whose
+reference ``Sequential`` holds dropouts at indices 2 and 4, and its
+decoder's nested cross-attention; ``PREFIXES``: MemFlow's ``network.``).
 """
 
 from __future__ import annotations
@@ -25,8 +26,15 @@ from typing import Any, Dict, Optional, Set
 import numpy as np
 import torch
 
-# Buffers that the JAX package computes where the reference stores them.
-STATIC_BUFFERS = ("rel_ind",)
+# Buffers that the JAX package computes where the reference stores them:
+# GMA's relative positions, LCV-RAFT's identity (ptlflow_tpu/models/lcv/
+# lcv_raft.py:45-48).
+STATIC_BUFFERS = ("rel_ind", "eye")
+
+# Prefixes under which the reference nests the whole network and the JAX
+# package's from_torch strips (MemFlow's ``network.``,
+# ptlflow_tpu/models/memflow/memflow.py:209-216).
+PREFIXES = ("network.",)
 
 # (JAX name, reference name) of a dotted path segment, undone by the JAX
 # package's from_torch (ptlflow_tpu/models/flowformer/flowformer.py:129-137,
@@ -45,6 +53,9 @@ def state_dict_from_jax(params: Dict[str, Any],
     if target is not None:
         embeddings = {f"{name}.weight" for name, mod in target.named_modules()
                       if isinstance(mod, torch.nn.Embedding)}
+        # the JAX tree's names lack the reference's outer prefix
+        embeddings |= {n[len(p):] for n in embeddings for p in PREFIXES
+                       if n.startswith(p)}
     out = _convert(params, "", embeddings)
     if target is not None:
         out = _rename_to_target(out, set(target.state_dict()))
@@ -54,8 +65,8 @@ def state_dict_from_jax(params: Dict[str, Any],
 
 def _rename_to_target(out: Dict[str, torch.Tensor],
                       own: Set[str]) -> Dict[str, torch.Tensor]:
-    """Each name that the target lacks under its ``RENAMES`` form, where
-    the target has that form."""
+    """Each name that the target lacks under its ``RENAMES`` form, with or
+    without one of the ``PREFIXES``, where the target has that form."""
     renamed = {}
     for name, t in out.items():
         if name not in own:
@@ -63,8 +74,8 @@ def _rename_to_target(out: Dict[str, torch.Tensor],
             for jax_name, ref_name in RENAMES:
                 alt = re.sub(r"(^|\.)" + re.escape(jax_name),
                              r"\g<1>" + ref_name, alt)
-            if alt in own:
-                name = alt
+            name = next((c for c in [alt] + [p + alt for p in PREFIXES]
+                         if c in own), name)
         renamed[name] = t
     return renamed
 

@@ -72,8 +72,9 @@ def test_port_sources_import_no_jax():
     assert not offenders
 
 
-PORTED = ["flowformer", "flowformer_pp", "gma", "raft", "raft_small",
-          "sea_raft", "sea_raft_l", "sea_raft_m", "sea_raft_s"]
+PORTED = ["flowformer", "flowformer_pp", "gma", "lcv_raft", "lcv_raft_small",
+          "memflow", "memflow_t", "raft", "raft_small", "sea_raft",
+          "sea_raft_l", "sea_raft_m", "sea_raft_s", "skflow"]
 
 
 def test_registry():
@@ -179,6 +180,33 @@ def test_checkpoint_round_trip(tmp_path):
     for k, v in src.state_dict().items():
         torch.testing.assert_close(dst.state_dict()[k], v, rtol=0, atol=0)
     assert dst.train_size == (368, 496)
+
+
+@pytest.mark.parametrize("name,extra", [("memflow", "network."),
+                                        ("lcv_raft", "corr_block.eye")])
+def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
+    """A Lightning-style .ckpt in the reference's layout, converted from a
+    JAX tree (MemFlow nests its net under ``network.``, LCV-RAFT stores
+    ``corr_block.eye``), loads into ``get_model`` strictly, every tensor
+    equal."""
+    import jax
+
+    from ptlflow_tpu_torch.utils.convert import state_dict_from_jax
+    from tests.test_torch_train import random_params
+
+    jmodel = ptlflow_tpu.get_model_reference(name)()
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
+    target = ptlflow_tpu_torch.get_model_reference(name)()
+    state = state_dict_from_jax(
+        random_params(shapes, np.random.RandomState(9)), target)
+    assert any(k.startswith(extra) for k in state)
+    path = tmp_path / f"{name}.ckpt"
+    torch.save({"state_dict": dict(state, **{"loss_fn.x": torch.zeros(1)}),
+                "hyper_parameters": {}}, path)
+    model = ptlflow_tpu_torch.get_model(name, ckpt_path=str(path),
+                                        device="cpu")
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(v, state[k], rtol=0, atol=0, msg=k)
 
 
 def test_named_checkpoint_needs_the_cache(tmp_path, monkeypatch):
