@@ -10,8 +10,10 @@ Phases, each of which must pass, else the script exits non-zero:
 2. hold each kernel against its plain PyTorch version on the card, at
    radii 0, 1, 3, 4 and 8 in fp32 and bf16, on odd map widths, an empty
    level, one query, a prime Q and coords far outside the map, and at the
-   main paths' shapes: the lookup, and the lookup's backward (which must
-   also give the same bits twice);
+   main paths' shapes (phase 12's one-level lookups among them: Q = 448 on
+   rapidflow's 14x32 level, Q = 32,640 on dpflow's 136x240 level at
+   1080p, its training levels): the lookup, and the lookup's backward
+   (which must also give the same bits twice);
 3. serve 3 frame pairs at 436x1024 through ``raft`` and ``raft_small``
    (12 GRU iterations), ``sea_raft_m`` (4 refinements), ``sea_raft_l``
    (12) and ``gma`` (12), with seeded random weights, via IOAdapter ->
@@ -80,7 +82,22 @@ Phases, each of which must pass, else the script exits non-zero:
     on both; and train steps of ``memflow`` at 368x496 at the largest of
     SK_TRAIN_BATCHES that fits, counting 15 lookups and 15 backward
     lookups a step.  Phase 2 checks both kernels on LCV-RAFT's pyramid at
-    128x160, whose last levels do not shrink.
+    128x160, whose last levels do not shrink;
+12. RAPIDFlow (+``_it1``, ``_it2``, ``_it3``, ``_it6``), RPKNet and DPFlow,
+    the coarse-to-fine recurrent pyramids (a one-level correlation block
+    prepared once a level, one lookup a step): serve 3 consecutive pairs
+    at 436x1024 through each, warm-started from the last (RAPIDFlow from
+    its full-size ``flows``, the others from ``flow_small``), counting 12,
+    1, 2, 3, 6, 12 and 12 lookups a forward; ``dpflow`` also at 1080x1920
+    (4 levels, 16 lookups); time and profile each fp32 forward with its
+    peak memory (the depthwise convolutions by kernel name) and
+    ``dpflow``'s ``validate --bf16`` cast; the flows of all seven at
+    256x320 on the card against the CPU; one train step at 128x160 (2
+    steps a level) of ``rapidflow``, ``rpknet`` and ``dpflow`` (Laplace
+    loss) on both; train ``rapidflow`` and ``dpflow`` at 352x480 as their
+    chairs configs set it (batch 8 and 5), counting 12 lookups and 12
+    backward lookups a step; and time both kernels at ``rapidflow``'s 1/8
+    level and ``dpflow``'s 1080p one.
 
 ``--against`` builds other versions of ``csrc/corr_lookup.cu`` (the same C
 interface) and times each in turns with the repo's kernel on the same
@@ -88,10 +105,10 @@ inputs (other, repo, repo, other), in the same run.
 
 The second-to-last line is ``{"kernels": [...]}``, the line before it the
 card's name and power limit (after ``{"harness": ...}``,
-``{"train_cli": ...}``, ``{"flowformer": ...}`` and ``{"sk_family":
-...}``, phases 8-11's numbers), and the last line
-``{"ok": true, "device": {...}}``.  With no card it prints no result and
-exits 2.
+``{"train_cli": ...}``, ``{"flowformer": ...}``, ``{"sk_family": ...}``
+and ``{"recurrent_pyramid": ...}``, phases 8-12's numbers), and the last
+line ``{"ok": true, "device": {...}}``.  With no card it prints no result
+and exits 2.
 """
 
 from __future__ import annotations
@@ -167,6 +184,22 @@ SK_SERVE = (("skflow", 32), ("lcv_raft", 32), ("lcv_raft_small", 32),
             ("memflow", 15), ("memflow_t", 15))
 SK_TRAIN_BATCHES = (8, 6, 4, 2)
 SK_TRAIN_STEPS = 4
+# Phase 12: the coarse-to-fine recurrent pyramids at their registered depths
+# (lookups a forward: steps a level times levels at 1024x436), DPFlow also at
+# Spring's 1920x1080 (4 levels), and their training as
+# rapidflow-train1-chairs.yaml (batch 8) and dpflow-train1-chairs.yaml
+# (batch 5) set it: 352x480 crops, AdamW, clip 1.0, 12 lookups a step
+RP_SERVE = (("rapidflow", 12), ("rapidflow_it1", 1), ("rapidflow_it2", 2),
+            ("rapidflow_it3", 3), ("rapidflow_it6", 6), ("rpknet", 12),
+            ("dpflow", 12))
+SPRING_H, SPRING_W, SPRING_LOOKUPS = 1080, 1920, 16
+RP_TRAIN_H, RP_TRAIN_W = 352, 480
+RP_TRAIN = (("rapidflow", 8, 4e-4), ("dpflow", 5, 2.5e-4))
+RP_TRAIN_STEPS = 4
+# (label, (channels, H, W)) of the one-level lookups both kernels are timed
+# at: rapidflow's 1/8 level of 1024x448, dpflow's of 1920x1088
+RP_KERNEL_LEVELS = (("rapidflow 1/8", (128, 56, 128)),
+                    ("dpflow 1080p 1/8", (256, 136, 240)))
 # DeviceCompose, card against CPU on one Chairs sample, the same draws and
 # one noise field: float32 sums of the same few terms in another order
 ATOL_AUG_IMAGES, ATOL_AUG_FLOWS_PX = 1e-5, 1e-4
@@ -393,6 +426,24 @@ def set_layer_scales(torch, model, seed: int) -> None:
                 p.copy_(0.1 + 0.9 * torch.rand(p.shape, generator=gen))
 
 
+def draw_factors(torch, model, seed: int) -> None:
+    """NeXt1D's depthwise factors ``weight_h`` and ``weight_v``, zero at
+    init (a zero factor tests nothing), seeded normal with std
+    (2 / k^2)^(1/4), so that their k x k product has a convolution's
+    He-normal scale; every layer scale (``gamma``, ``layer_scale*``)
+    seeded in [0.1, 1]."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("weight_h", "weight_v"):
+                k = max(p.shape[2:])
+                p.copy_((2.0 / k ** 2) ** 0.25
+                        * torch.randn(p.shape, generator=gen))
+            elif leaf == "gamma" or leaf.startswith("layer_scale"):
+                p.copy_(0.1 + 0.9 * torch.rand(p.shape, generator=gen))
+
+
 def randomise_norms(torch, model, seed: int) -> None:
     """Seeded BatchNorm statistics and affine weights, as the CPU tests
     give them, so that BatchNorm is not the identity."""
@@ -495,12 +546,20 @@ def parity_weights(torch, name: str, model, images) -> None:
     channels by 0.1, each ConvNeXt block's ``final`` conv by 0.1 (random
     ones multiply the hidden state by ~2.5 a block, and nothing bounds it),
     and the norms calibrated on ``images``.  FlowFormer:
-    ``condition_flowformer``.  SKFlow and MemFlow:
+    ``condition_flowformer``.  RAPIDFlow, RPKNet, DPFlow:
+    ``draw_factors`` and the flow head damped by 0.03.  SKFlow and MemFlow:
     ``condition_super_kernel``, seeded norms and layer scales (the memory
     readout's ``gamma`` among them).  LCV-RAFT: RAFT's flow head damped by
     0.01 (32 iterations), seeded norms and ``learned_metric``."""
     if name.startswith("flowformer"):
         condition_flowformer(torch, model)
+        return
+    if name.startswith(("rapidflow", "rpknet", "dpflow")):
+        draw_factors(torch, model, 1)
+        # at 0.1 (the CPU tests' damping at 64x96) rapidflow's 12 steps
+        # give 90 px mean flows at 256x320, which one rounding of the input
+        # moves by 8.9e-3 px
+        damp_flow_head(model, 0.03)
         return
     if name.startswith(("skflow", "memflow")):
         condition_super_kernel(torch, model)
@@ -577,15 +636,16 @@ def served_model(torch, name: str, args: dict, images):
     return model
 
 
-def train_step_card_vs_cpu(torch, name: str, dev, args=None) -> dict:
+def train_step_card_vs_cpu(torch, name: str, dev, args=None,
+                           lookups: int = 2) -> dict:
     """One train step of ``name`` at 128x160, batch 2, 2 iterations (or
-    the ``args`` that set 2 decoder steps), on the
+    the ``args`` that set 2 decoder steps, or 2 steps a level), on the
     CPU and on the card from the same weights (``parity_weights``), and on
     the CPU again with the images one fp32 rounding off: the loss within
     RTOL_LOSS, the BatchNorm statistics within ATOL_BN and the whole
     gradient within GRAD_RTOL, by its largest element and by its norm; the
     per-tensor figures printed beside those of the nudged CPU run.  The card
-    step must launch each kernel twice."""
+    step must launch each kernel ``lookups`` times."""
     import ptlflow_tpu_torch
     from ptlflow_tpu_torch.nn import split_trainable
     from ptlflow_tpu_torch.ops import correlation as corr
@@ -614,10 +674,10 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None) -> dict:
         if label == "card":
             card_launches = (corr.corr_lookup_kernel.launches,
                              corr.corr_lookup_backward_kernel.launches)
-            if card_launches != (2, 2):
+            if card_launches != (lookups, lookups):
                 raise AssertionError(f"{name} card train step: launches "
-                                     f"{card_launches}, expected 2 of each "
-                                     f"kernel")
+                                     f"{card_launches}, expected {lookups} "
+                                     f"of each kernel")
     (cl, names, cg, cs, cn), (gl, _, gg, gs, gn) = (step_out["cpu"],
                                                     step_out["card"])
     gmax = max(g.abs().max().item() for g in cg)
@@ -642,7 +702,8 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None) -> dict:
             + ", ".join(f"{n} {r:.2e}" for r, n in ratios[-4:])
             + f" ({sum(r > GRAD_RTOL for r, _ in ratios)} of {len(ratios)} "
             f"over {GRAD_RTOL})")
-    log(f"[4 card vs cpu] {name} train step, 2x128x160, 2 iters: loss "
+    log(f"[4 card vs cpu] {name} train step, 2x128x160, {lookups} "
+        f"lookups: loss "
         f"{gl:.7f} on the card, {cl:.7f} on the CPU; grad norm {gn:.6f} / "
         f"{cn:.6f}; the whole gradient: max |dg| / max |g| {glob_max:.2e}, "
         f"|dg| / |g| {glob_norm:.2e} (tolerance {GRAD_RTOL}); BN statistics "
@@ -786,6 +847,17 @@ def main(argv=None) -> int:
                (2, 16, 20, 16, 20, 256, -0.3, 1.3, 4, radius), radius, dtype)
               for radius in (4, 3) for dtype in (torch.float32,
                                                  torch.bfloat16)]
+    # the recurrent pyramids' one-level, one-channel lookups (phase 12):
+    # rapidflow's 1/32 level of 1024x448 (Q = 448 on 14x32) and its 1/8
+    # (Q = 7168 on 56x128); dpflow at 1920x1088: the 1/8 level (Q = 32,640
+    # on 136x240, a 4.26 GB fp32 volume) and the 1/64 (17x30)
+    cases += [(f"{label}, 1 level, r=4", (1, h, w, h, w, c, -0.1, 1.1, 1), 4,
+               torch.float32)
+              for label, (c, h, w) in (
+                  ("rapidflow 1/32 Q=448", (128, 14, 32)),
+                  ("rapidflow 1/8 Q=7168", (128, 56, 128)),
+                  ("dpflow 1080p 1/8 Q=32640", (256, 136, 240)),
+                  ("dpflow 1080p 1/64 Q=510", (256, 17, 30)))]
     far = torch.tensor([1e7, -1e7, 3.5, -2.5e6, 2.5], device=dev)
     main_err = None
     main_inputs = {}
@@ -832,6 +904,12 @@ def main(argv=None) -> int:
                   for dtype in (torch.float32, torch.bfloat16)]
     bwd_cases += [(f"flowformer train Q={8 * th * tw}, 1 level, r=4",
                    (8, th, tw, th, tw, 256, -0.1, 1.1, 1), 4, torch.float32)]
+    # dpflow's training levels at 352x480, batch 5: 1/32 (Q = 825) and 1/8
+    # (Q = 13,200)
+    bwd_cases += [(f"dpflow train Q={5 * h * w}, 1 level, r=4",
+                   (5, h, w, h, w, 256, -0.1, 1.1, 1), 4, torch.float32)
+                  for h, w in ((RP_TRAIN_H // 32, RP_TRAIN_W // 32),
+                               (RP_TRAIN_H // 8, RP_TRAIN_W // 8))]
     worst_bwd = {torch.float32: 0.0, torch.bfloat16: 0.0}
     train_inputs, bwd_err, bwd_gmax = None, None, None
     for label, shape, radius, dtype in bwd_cases:
@@ -1293,6 +1371,18 @@ def main(argv=None) -> int:
                      f"{TRAIN_H}, batch {sk['train']['batch']}")
     launches[sk_train_path] = sum(sk["train"]["lookup"])
 
+    # ---------------------------------------------------------------- 12
+    t12 = time.perf_counter()
+    rp = recurrent_pyramid_phase(torch, dev, tag)
+    log(f"[12] {time.perf_counter() - t12:.1f} s")
+    launches.update(rp["launches"])
+    rp_train_paths = {
+        name: (f"{name} train, {RP_TRAIN_STEPS} steps at {RP_TRAIN_W}x"
+               f"{RP_TRAIN_H}, batch {rec['batch']}")
+        for name, rec in rp["train"].items()}
+    for name, path in rp_train_paths.items():
+        launches[path] = sum(rp["train"][name]["lookup"])
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -1325,6 +1415,7 @@ def main(argv=None) -> int:
         "host_us_prepared": host_us_prepared,
         "train_launches_per_step": train["lookup"],
         "flowformer_shape": ff["kernels"]["corr_lookup"],
+        "recurrent_pyramid_shapes": rp["kernels"]["corr_lookup"],
     }, {
         "name": "corr_lookup_backward",
         "route": "cuda",
@@ -1340,7 +1431,12 @@ def main(argv=None) -> int:
             **{cli_path: cli_launches[1]}, **ff_bwd_launches,
             **{f"{name} train step at 128x160, 2 steps": check["launches"][1]
                for name, check in sk["train_step_card_vs_cpu"].items()},
-            **{sk_train_path: sum(sk["train"]["lookup_backward"])}),
+            **{sk_train_path: sum(sk["train"]["lookup_backward"])},
+            **{f"{name} train step at 128x160, 2 steps a level":
+               check["launches"][1]
+               for name, check in rp["train_step_card_vs_cpu"].items()},
+            **{path: sum(rp["train"][name]["lookup_backward"])
+               for name, path in rp_train_paths.items()}),
         "max_abs_err": bwd_err,
         "max_abs_grad": bwd_gmax,
         "ms": bwd_ms,
@@ -1352,6 +1448,7 @@ def main(argv=None) -> int:
         "bound_bytes": bb["bytes"],
         "level_sums_ms": 11 * sum_ms,
         "flowformer_shape": ff["kernels"]["corr_lookup_backward"],
+        "recurrent_pyramid_shapes": rp["kernels"]["corr_lookup_backward"],
     }]
     if against:
         kernels[0]["against"] = against
@@ -1365,6 +1462,9 @@ def main(argv=None) -> int:
     log(json.dumps({"flowformer": {k: v for k, v in ff.items()
                                    if k != "kernels"}, "card": tag}))
     log(json.dumps({"sk_family": sk, "card": tag}))
+    log(json.dumps({"recurrent_pyramid": {k: v for k, v in rp.items()
+                                          if k != "kernels"},
+                    "card": tag}))
     log(tag)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1879,8 +1979,10 @@ def check_flows(torch, name: str, out, shape) -> None:
 
 def train_at_largest_batch(torch, dev, tag: str, model, tx, batch_sizes,
                            n_steps: int, depth: int, label: str,
-                           phase: int) -> dict:
-    """``n_steps`` train steps of ``model`` at TRAIN_H x TRAIN_W through
+                           phase: int, size=(TRAIN_H, TRAIN_W),
+                           level_shapes=None, profile_runs: int = 2) -> dict:
+    """``n_steps`` train steps of ``model`` at ``size`` (TRAIN_H x TRAIN_W)
+    through
     ``build_train_step`` with optimizer ``tx``, at the first of
     ``batch_sizes`` that fits the card (a batch that runs out of memory is
     logged and the next tried), each on its own seeded synthetic batch,
@@ -1888,15 +1990,17 @@ def train_at_largest_batch(torch, dev, tag: str, model, tx, batch_sizes,
     step asserted; then one step profiled.  Returns the per-step ms, loss
     and launches, the median of steps 2 on, samples/s, the peak memory and
     that above what was allocated before the first step, and the
-    profile."""
+    profile (``level_shapes(batch)``: the levels' (Q, H, W), whose dense
+    gradient sums it counts; by default RAFT's one 1/8 level)."""
     from ptlflow_tpu_torch.ops import correlation as corr
     from ptlflow_tpu_torch.parallel import train as ttrain
 
     step = ttrain.build_train_step(model, tx)
     state = ttrain.create_train_state(model, tx)
+    crop_h, crop_w = size
     train = None
     for b in batch_sizes:
-        batches = [train_batch(torch, 300 + k, b, TRAIN_H, TRAIN_W, dev)
+        batches = [train_batch(torch, 300 + k, b, crop_h, crop_w, dev)
                    for k in range(n_steps)]
         rec = {"batch": b, "step_ms": [], "loss": [], "lookup": [],
                "lookup_backward": []}
@@ -1946,11 +2050,13 @@ def train_at_largest_batch(torch, dev, tag: str, model, tx, batch_sizes,
     train["samples_per_s"] = train["batch"] / train["median_step_ms"] * 1e3
     train["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     train["steps_gib"] = train["peak_gib"] - base / 2 ** 30
-    th, tw = -(-TRAIN_H // 8), -(-TRAIN_W // 8)
+    th, tw = -(-crop_h // 8), -(-crop_w // 8)
+    shapes = ([(train["batch"] * th * tw, th, tw)] if level_shapes is None
+              else level_shapes(train["batch"]))
     train["profile"] = profile_train_step(
-        torch, step, state, batches[-1], [(train["batch"] * th * tw, th, tw)],
-        tag, train["median_step_ms"], label=label, phase=phase)
-    log(f"[{phase} train] [{tag}] {label} {TRAIN_W}x{TRAIN_H}, batch "
+        torch, step, state, batches[-1], shapes, tag,
+        train["median_step_ms"], label=label, phase=phase, runs=profile_runs)
+    log(f"[{phase} train] [{tag}] {label} {crop_w}x{crop_h}, batch "
         f"{train['batch']}, {depth} steps of the decoder, fp32 (TF32 off): "
         f"{train['median_step_ms']:.3f} ms per step (median of steps "
         f"2-{n_steps}), {train['samples_per_s']:.2f} samples/s, peak "
@@ -1961,15 +2067,18 @@ def train_at_largest_batch(torch, dev, tag: str, model, tx, batch_sizes,
 
 
 def time_forward(torch, model, images, label: str, tag: str, depth: str,
-                 phase: int, out: dict, kernel_names=None) -> None:
-    """The eval forward of ``images``: 3 warm-ups, then the median of 3
-    runs of 10 forwards by CUDA events; the peak memory of one forward,
-    and above what was allocated before it (the model, and what earlier
-    phases still hold); a profile (``profile_forward``, with the kernel
-    times by ``kernel_names``).  Written into ``out`` under ``label``."""
-    for _ in range(3):
+                 phase: int, out: dict, kernel_names=None,
+                 reps: int = 10, warmups: int = 3,
+                 profiled: bool = True) -> None:
+    """The eval forward of ``images``: ``warmups`` warm-ups, then the
+    median of 3 runs of ``reps`` forwards by CUDA events; the peak memory of
+    one forward, and above what was allocated before it (the model, and
+    what earlier phases still hold); where ``profiled``, a profile
+    (``profile_forward``, with the kernel times by ``kernel_names``).
+    Written into ``out`` under ``label``."""
+    for _ in range(warmups):
         model({"images": images})
-    runs = sorted(timed_ms(torch, lambda: model({"images": images}), 10)
+    runs = sorted(timed_ms(torch, lambda: model({"images": images}), reps)
                   for _ in range(3))
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -1981,15 +2090,85 @@ def time_forward(torch, model, images, label: str, tag: str, depth: str,
     out["forward_runs_ms"][label] = runs
     out["peak_gib"][label] = peak / 2 ** 30
     out["forward_gib"][label] = (peak - base) / 2 ** 30
-    log(f"[{phase} forward] [{tag}] {label}, {W}x{H}, {depth}: "
+    h, w = images.shape[-2:]
+    log(f"[{phase} forward] [{tag}] {label}, {w}x{h}, {depth}: "
         f"{runs[1]:.3f} ms/forward, {1e3 / runs[1]:.2f} fps (median of 3 "
-        f"runs of 10 forwards: {', '.join(f'{r:.3f}' for r in runs)} ms); "
+        f"runs of {reps} forwards: {', '.join(f'{r:.3f}' for r in runs)} "
+        f"ms); "
         f"peak {peak / 2 ** 30:.2f} GiB allocated, "
         f"{(peak - base) / 2 ** 30:.2f} GiB above the "
         f"{base / 2 ** 30:.2f} GiB allocated before the forward")
-    out["profile"][label] = profile_forward(
-        torch, model, images, label, tag, runs[1], phase=phase,
-        kernel_names=kernel_names)
+    if profiled:
+        out["profile"][label] = profile_forward(
+            torch, model, images, label, tag, runs[1], phase=phase,
+            kernel_names=kernel_names)
+
+
+def lookup_record(torch, pyr, coords, radius: int, err, flush) -> dict:
+    """The lookup kernel at ``pyr``'s and ``coords``' shapes, L2 flushed
+    before each launch: ms by CUDA events and device ms by the profiler,
+    its plain version's ms, the ``grid_sample`` yardstick's, the bound;
+    ``err`` is phase 2's max |kernel - plain| there."""
+    from ptlflow_tpu_torch.ops import correlation as corr
+
+    lookup = corr.make_corr_lookup(pyr, radius)
+    bound = lookup_bound(torch, pyr, coords, radius)
+    return {"q": coords.shape[0] * coords.shape[2] * coords.shape[3],
+            "levels": [tuple(p.shape[1:]) for p in pyr],
+            "max_abs_err": err,
+            "ms": timed_ms(torch, lambda: lookup(coords), 50, flush),
+            "profiler_ms": profiled_ms(torch, lambda: lookup(coords), 50,
+                                       flush),
+            "plain_ms": timed_ms(torch, lambda: corr.corr_pyramid_lookup_plain(
+                pyr, coords, radius), 20, flush),
+            "library_ms": timed_ms(torch, lambda: grid_sample_lookup(
+                torch, pyr, coords, radius), 20, flush),
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "bound_bytes": bound["bytes"]}
+
+
+def backward_record(torch, levels, coords, grad, radius: int, flush,
+                    label: str) -> dict:
+    """The backward kernel for ``levels``' shapes at ``coords`` with the
+    output gradient ``grad``, L2 flushed before each launch: held to its
+    plain version (RTOL_BWD_FP32 of the largest gradient) and to itself
+    bit for bit, then ms by CUDA events and device ms by the profiler, the
+    plain version's ms, the ``autograd.grad`` of the ``grid_sample``
+    yardstick's, and the bound."""
+    from ptlflow_tpu_torch.ops import correlation as corr
+
+    shapes = [tuple(lvl.shape[1:]) for lvl in levels]
+
+    def bwd():
+        return corr.corr_lookup_backward_kernel(grad, coords, shapes, radius)
+
+    got, again = bwd(), bwd()
+    want = corr.corr_pyramid_lookup_backward_plain(grad, coords, shapes,
+                                                   radius)
+    err = max((a - w).abs().max().item() for a, w in zip(got, want))
+    gmax = max(w.abs().max().item() for w in want)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not (same and err <= RTOL_BWD_FP32 * gmax):
+        raise AssertionError(f"{label} backward: |err| {err}, repeatable "
+                             f"{same}")
+    del got, again, want
+    lv = [lvl.detach().requires_grad_() for lvl in levels]
+    gs_out = grid_sample_lookup(torch, lv, coords, radius)
+    bb = backward_bound(torch, grad, coords, shapes, radius)
+    rec = {"q": coords.shape[0] * coords.shape[2] * coords.shape[3],
+           "levels": shapes, "max_abs_err": err, "max_abs_grad": gmax,
+           "ms": timed_ms(torch, bwd, 20, flush),
+           "profiler_ms": profiled_ms(torch, bwd, 20, flush,
+                                      name="corr_lookup_backward"),
+           "plain_ms": timed_ms(
+               torch, lambda: corr.corr_pyramid_lookup_backward_plain(
+                   grad, coords, shapes, radius), 3, flush),
+           "library_ms": timed_ms(torch, lambda: torch.autograd.grad(
+               gs_out, lv, grad, retain_graph=True), 5, flush),
+           "bound_ms": bb["bound_ms"], "bound_by": bb["bound_by"],
+           "bound_bytes": bb["bytes"]}
+    del gs_out, lv
+    return rec
 
 
 def flowformer_phase(torch, dev, tag: str, ff_lookup) -> dict:
@@ -2014,29 +2193,9 @@ def flowformer_phase(torch, dev, tag: str, ff_lookup) -> dict:
     calib = IOAdapter(device=dev).prepare_inputs(frames[:2])["images"]
     for name in FF_SERVE:
         model = conditioned_served(torch, name, calib)
-        adapter = IOAdapter(model)
-        corr.corr_lookup_kernel.launches = 0
-        prev = None
-        for k in range(3):
-            x = adapter.prepare_inputs(frames[k:k + 2])
-            if prev is not None:
-                x["prev_preds"] = {"flow_small": prev}
-            before = corr.corr_lookup_kernel.launches
-            res = model(x)
-            torch.cuda.synchronize()
-            n = corr.corr_lookup_kernel.launches - before
-            check_flows(torch, name, adapter.unscale(res), (1, 1, 2, H, W))
-            if n != FF_DEPTH:
-                raise AssertionError(f"{name}: {n} lookup launches in one "
-                                     f"forward, expected {FF_DEPTH}")
-            mean = res["flows"].mean(dim=(0, 1, 3, 4)).tolist()
-            log(f"[10 serve] {name} pair {k} at {W}x{H}"
-                f"{', warm-started' if prev is not None else ''}: flows "
-                f"finite, no grad_fn, mean ({mean[0]:.3f}, {mean[1]:.3f}) "
-                f"px (true motion 2, 1), {n} lookup launches")
-            prev = res["flow_small"]
-        key = f"{name} serve, 3 pairs warm-started"
-        out["launches"][key] = corr.corr_lookup_kernel.launches
+        n, x = serve_sequence(torch, name, model, frames, FF_DEPTH,
+                              (1, 1, 2, H, W), 10)
+        out["launches"][f"{name} serve, 3 pairs warm-started"] = n
 
         images = x["images"]
         for mode in ("fp32", "bf16 cast"):
@@ -2110,55 +2269,11 @@ def flowformer_phase(torch, dev, tag: str, ff_lookup) -> dict:
     # both kernels at FlowFormer's shapes, L2 flushed before each launch
     flush = flushes(torch, dev)["dirty"]
     pyr, coords, err = ff_lookup
-    lookup = corr.make_corr_lookup(pyr, 4)
-    bound = lookup_bound(torch, pyr, coords, 4)
-    fwd = {"q": coords.shape[0] * coords.shape[2] * coords.shape[3],
-           "levels": [tuple(p.shape[1:]) for p in pyr],
-           "max_abs_err": err,
-           "ms": timed_ms(torch, lambda: lookup(coords), 50, flush),
-           "profiler_ms": profiled_ms(torch, lambda: lookup(coords), 50,
-                                      flush),
-           "plain_ms": timed_ms(torch, lambda: corr.corr_pyramid_lookup_plain(
-               pyr, coords, 4), 20, flush),
-           "library_ms": timed_ms(torch, lambda: grid_sample_lookup(
-               torch, pyr, coords, 4), 20, flush),
-           "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-           "bound_bytes": bound["bytes"]}
-    b = train["batch"]
-    g = torch.Generator().manual_seed(10)
-    f1 = torch.randn(b, 256, th, tw, generator=g).to(dev)
-    f2 = torch.randn(b, 256, th, tw, generator=g).to(dev)
-    levels = corr.build_corr_pyramid(f1, f2, 1)
-    tcoords = (torch.rand(b, 2, th, tw, generator=g).to(dev) * 1.2 - 0.1) \
-        * torch.tensor([tw, th], device=dev).view(1, 2, 1, 1)
-    grad = torch.randn(b, 81, th, tw, generator=g).to(dev)
-    shapes = [(th, tw)]
-
-    def bwd():
-        return corr.corr_lookup_backward_kernel(grad, tcoords, shapes, 4)
-
-    got, again = bwd(), bwd()
-    want = corr.corr_pyramid_lookup_backward_plain(grad, tcoords, shapes, 4)
-    bwd_err = (got[0] - want[0]).abs().max().item()
-    gmax = want[0].abs().max().item()
-    if not (torch.equal(got[0], again[0]) and bwd_err <= RTOL_BWD_FP32 * gmax):
-        raise AssertionError(f"FlowFormer-shaped backward: |err| {bwd_err}")
-    lv = [levels[0].detach().requires_grad_()]
-    gs_out = grid_sample_lookup(torch, lv, tcoords, 4)
-    bb = backward_bound(torch, grad, tcoords, shapes, 4)
-    bwd_rec = {"q": b * th * tw, "levels": shapes, "max_abs_err": bwd_err,
-               "max_abs_grad": gmax,
-               "ms": timed_ms(torch, bwd, 20, flush),
-               "profiler_ms": profiled_ms(torch, bwd, 20, flush,
-                                          name="corr_lookup_backward"),
-               "plain_ms": timed_ms(
-                   torch, lambda: corr.corr_pyramid_lookup_backward_plain(
-                       grad, tcoords, shapes, 4), 3, flush),
-               "library_ms": timed_ms(torch, lambda: torch.autograd.grad(
-                   gs_out, lv, grad, retain_graph=True), 5, flush),
-               "bound_ms": bb["bound_ms"], "bound_by": bb["bound_by"],
-               "bound_bytes": bb["bytes"]}
-    del gs_out, lv, got, again, want
+    fwd = lookup_record(torch, pyr, coords, 4, err, flush)
+    levels, tcoords, grad = level_inputs(torch, dev, 10, train["batch"], th,
+                                         tw, 256)
+    bwd_rec = backward_record(torch, levels, tcoords, grad, 4, flush,
+                              "FlowFormer-shaped")
     out["kernels"] = {"corr_lookup": fwd, "corr_lookup_backward": bwd_rec}
     for kname, rec in out["kernels"].items():
         log(f"[10 kernels] [{tag}] {kname} at FlowFormer's shape Q="
@@ -2224,29 +2339,9 @@ def sk_family_phase(torch, dev, tag: str) -> dict:
     for name, depth in SK_SERVE:
         t0 = time.perf_counter()
         model = conditioned_served(torch, name, calib)
-        adapter = IOAdapter(model)
-        corr.corr_lookup_kernel.launches = 0
-        prev = None
-        for k in range(3):
-            x = adapter.prepare_inputs(frames[k:k + 2])
-            if prev is not None:
-                x["prev_preds"] = {"flow_small": prev}
-            before = corr.corr_lookup_kernel.launches
-            res = model(x)
-            torch.cuda.synchronize()
-            n = corr.corr_lookup_kernel.launches - before
-            check_flows(torch, name, adapter.unscale(res), (1, 1, 2, H, W))
-            if n != depth:
-                raise AssertionError(f"{name}: {n} lookup launches in one "
-                                     f"forward, expected {depth}")
-            mean = res["flows"].mean(dim=(0, 1, 3, 4)).tolist()
-            log(f"[11 serve] {name} pair {k} at {W}x{H}"
-                f"{', warm-started' if prev is not None else ''}: flows "
-                f"finite, no grad_fn, mean ({mean[0]:.3f}, {mean[1]:.3f}) "
-                f"px (true motion 2, 1), {n} lookup launches")
-            prev = res["flow_small"]
-        out["launches"][f"{name} serve, 3 pairs warm-started"] = \
-            corr.corr_lookup_kernel.launches
+        n, x = serve_sequence(torch, name, model, frames[:4], depth,
+                              (1, 1, 2, H, W), 11)
+        out["launches"][f"{name} serve, 3 pairs warm-started"] = n
 
         time_forward(torch, model, x["images"], f"{name} fp32", tag,
                      f"{depth} steps", 11, out, named)
@@ -2254,7 +2349,7 @@ def sk_family_phase(torch, dev, tag: str) -> dict:
             # the memory stream at full size: 4 pairs with meta
             corr.corr_lookup_kernel.launches = 0
             flows, counts, n = memflow_stream(
-                model, adapter, frames,
+                model, IOAdapter(model), frames,
                 lambda r: check_flows(torch, name, r, (1, 1, 2, H, W)))
             torch.cuda.synchronize()
             if counts != [1, 2, 2, 2] or n != [depth] * 4:
@@ -2277,7 +2372,7 @@ def sk_family_phase(torch, dev, tag: str) -> dict:
             del cast
         log(f"[11 serve] {name}: {time.perf_counter() - t0:.1f} s with its "
             f"timing")
-        del model, res, prev
+        del model, x
 
     # card against CPU at 256x320, the registered depths
     seq = smooth_frames(7, 256, 320, 5, shift=(3, 2))
@@ -2328,6 +2423,219 @@ def sk_family_phase(torch, dev, tag: str) -> dict:
         torch, dev, tag, model, tx, SK_TRAIN_BATCHES, SK_TRAIN_STEPS,
         dict(SK_SERVE)["memflow"], "memflow", 11)
     del model
+    return out
+
+
+def serve_sequence(torch, name: str, model, frames, depth: int, shape,
+                   phase: int):
+    """The consecutive pairs of ``frames`` through ``model`` via IOAdapter
+    -> model -> unscale, each warm-started from the last: RAPIDFlow from
+    the previous pair's full-size ``flows`` (it gives no ``flow_small``),
+    the others from its ``flow_small``.  Asserts each pair's flows of
+    ``shape`` finite, no autograd graph and ``depth`` lookup launches.
+    Returns the launches and the last pair's inputs."""
+    from ptlflow_tpu_torch.ops import correlation as corr
+    from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+
+    adapter = IOAdapter(model)
+    key = "flows" if name.startswith("rapidflow") else "flow_small"
+    corr.corr_lookup_kernel.launches = 0
+    prev = x = None
+    for k in range(len(frames) - 1):
+        x = adapter.prepare_inputs(frames[k:k + 2])
+        if prev is not None:
+            x["prev_preds"] = {key: prev}
+        before = corr.corr_lookup_kernel.launches
+        res = model(x)
+        torch.cuda.synchronize()
+        n = corr.corr_lookup_kernel.launches - before
+        check_flows(torch, name, adapter.unscale(res), shape)
+        if n != depth:
+            raise AssertionError(f"{name}: {n} lookup launches in one "
+                                 f"forward, expected {depth}")
+        mean = res["flows"].mean(dim=(0, 1, 3, 4)).tolist()
+        log(f"[{phase} serve] {name} pair {k} at {shape[-1]}x{shape[-2]}"
+            f"{f', warm-started from {key}' if prev is not None else ''}: "
+            f"flows finite, no grad_fn, mean ({mean[0]:.3f}, {mean[1]:.3f}) "
+            f"px, {n} lookup launches")
+        prev = res[key]
+    return corr.corr_lookup_kernel.launches, x
+
+
+def level_inputs(torch, dev, seed: int, b: int, h: int, w: int, c: int):
+    """One correlation level of two seeded (b, c, h, w) feature maps, coords
+    spread over the map and 10% past each side, and a seeded gradient of
+    the (b, 81, h, w) lookup."""
+    from ptlflow_tpu_torch.ops import correlation as corr
+
+    g = torch.Generator().manual_seed(seed)
+    f1 = torch.randn(b, c, h, w, generator=g).to(dev)
+    f2 = torch.randn(b, c, h, w, generator=g).to(dev)
+    levels = corr.build_corr_pyramid(f1, f2, 1)
+    coords = (torch.rand(b, 2, h, w, generator=g).to(dev) * 1.2 - 0.1) \
+        * torch.tensor([w, h], device=dev).view(1, 2, 1, 1)
+    grad = torch.randn(b, 81, h, w, generator=g).to(dev)
+    return levels, coords, grad
+
+
+def recurrent_pyramid_phase(torch, dev, tag: str) -> dict:
+    """Phase 12: RAPIDFlow (+``_it1``, ``_it2``, ``_it3``, ``_it6``),
+    RPKNet and DPFlow on the card at their registered depths (RP_SERVE).
+    Serves 3 consecutive warm-started pairs at H x W through each, with one
+    lookup launch a step (a ``CorrBlock`` prepared once a level) and no
+    autograd graph; ``dpflow`` also at SPRING_H x SPRING_W (4 levels,
+    SPRING_LOOKUPS lookups); times and profiles each fp32 forward with its
+    peak memory (the depthwise convolutions by name) and ``dpflow``'s
+    ``validate --bf16`` cast; holds the card against the CPU at 256x320
+    and one train step at 128x160 (2 steps a level) of ``rapidflow``,
+    ``rpknet`` and ``dpflow``; trains ``rapidflow`` and ``dpflow`` at
+    RP_TRAIN_H x RP_TRAIN_W as their chairs configs set it (RP_TRAIN); and
+    times both kernels at ``rapidflow``'s 1/8 level and ``dpflow``'s
+    1080p one (phase 2 checks them there)."""
+    import copy
+
+    import ptlflow_tpu_torch
+    from ptlflow_tpu_torch.ops import correlation as corr
+    from ptlflow_tpu_torch.parallel import train as ttrain
+    from ptlflow_tpu_torch.scripts.validate import cast_to_bf16
+    from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+
+    out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
+           "peak_gib": {}, "forward_gib": {}, "launches": {},
+           "card_vs_cpu_px": {}}
+    named = {"depthwise conv": "depthwise"}
+    # consecutive frames of one sequence moving (2, 1) px a frame
+    frames = smooth_frames(51, H, W, 4, shift=(2, 1))
+    calib = IOAdapter(device=dev).prepare_inputs(frames[:2])["images"]
+    for name, depth in RP_SERVE:
+        t0 = time.perf_counter()
+        model = conditioned_served(torch, name, calib)
+        n, x = serve_sequence(torch, name, model, frames, depth,
+                              (1, 1, 2, H, W), 12)
+        out["launches"][f"{name} serve, 3 pairs warm-started"] = n
+        time_forward(torch, model, x["images"], f"{name} fp32", tag,
+                     f"{depth} lookups", 12, out, named)
+        if name == "dpflow":
+            cast = copy.deepcopy(model)
+            if not cast_to_bf16(cast, name):
+                raise AssertionError(f"{name}: not on the allow-list")
+            time_forward(torch, cast, x["images"], f"{name} bf16 cast", tag,
+                         f"{depth} lookups", 12, out, named)
+            del cast
+            # Spring's size: 4 levels, stride 64
+            spring = smooth_frames(52, SPRING_H, SPRING_W, 3, shift=(3, 2))
+            n, x = serve_sequence(torch, name, model, spring,
+                                  SPRING_LOOKUPS,
+                                  (1, 1, 2, SPRING_H, SPRING_W), 12)
+            out["launches"][f"{name} serve at {SPRING_W}x{SPRING_H}, 2 "
+                            f"pairs warm-started"] = n
+            # ~4 s and ~5e5 launches a forward (PR 9), ~2 min to sort
+            # under the profiler: the served pairs are the warm-ups, one
+            # forward a timed run, and the profile is of one update step
+            # at the 1/8 level (the lookup's output and the flow, random)
+            t1 = time.perf_counter()
+            time_forward(torch, model, x["images"], f"{name} fp32 1080p",
+                         tag, f"{SPRING_LOOKUPS} lookups", 12, out, named,
+                         reps=1, warmups=0, profiled=False)
+            g = torch.Generator().manual_seed(12)
+            h8, w8 = -(-SPRING_H // 64) * 8, -(-SPRING_W // 64) * 8
+            # net, inp (the registered 128 each), corr, flow
+            step_in = [torch.randn(1, c, h8, w8, generator=g).to(dev)
+                       for c in (128, 128, 81, 2)]
+
+            def update_step(_):
+                return model.update_block(*step_in, get_mask=False)
+
+            with torch.no_grad():
+                step_ms = timed_ms(torch, lambda: update_step(None), 3)
+                label = f"{name} update step at 1080p's 1/8 level"
+                out["forward_ms"][label] = step_ms
+                out["profile"][label] = profile_forward(
+                    torch, update_step, None, label, tag, step_ms, phase=12,
+                    kernel_names=named)
+            log(f"[12 forward] {name} at 1080p timed and profiled in "
+                f"{time.perf_counter() - t1:.1f} s")
+        log(f"[12 serve] {name}: {time.perf_counter() - t0:.1f} s with its "
+            f"timing")
+        del model, x
+
+    # card against CPU at 256x320, the registered depths
+    t0 = time.perf_counter()
+    pair = smooth_pair(7, 256, 320, shift=(3, 2))
+    for name, depth in RP_SERVE:
+        cpu_model = ptlflow_tpu_torch.get_model(name, device="cpu")
+        x = IOAdapter(cpu_model).prepare_inputs(list(pair))
+        parity_weights(torch, name, cpu_model, x["images"])
+        gpu_model = ptlflow_tpu_torch.get_model(name)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        want = cpu_model(x)["flows"]
+        got = gpu_model({"images": x["images"].to(dev)})["flows"].cpu()
+        diff = (got - want).abs().max().item()
+        out["card_vs_cpu_px"][name] = diff
+        log(f"[12 card vs cpu] {name} 256x320, {depth} lookups: max |dflow| "
+            f"{diff:.3e} px (flow up to {want.abs().max().item():.2f} px, "
+            f"tolerance {ATOL_CARD_CPU_PX} px)")
+        if not diff <= ATOL_CARD_CPU_PX:
+            raise AssertionError(f"{name}: card and CPU differ by {diff} px")
+        del cpu_model, gpu_model
+    log(f"[12 card vs cpu] {time.perf_counter() - t0:.1f} s")
+    # 2 steps a level on the 3 levels of 128x160: 6 lookups
+    t0 = time.perf_counter()
+    out["train_step_card_vs_cpu"] = {
+        name: train_step_card_vs_cpu(torch, name, dev, args, lookups=6)
+        for name, args in (("rapidflow", {"iters": 6}),
+                           ("rpknet", {"iters": 6}),
+                           ("dpflow", {"iters_per_level": 2}))}
+
+    # training at the chairs configs' crops and batches
+    def level_shapes(b):
+        return [(b * (RP_TRAIN_H // s) * (RP_TRAIN_W // s), RP_TRAIN_H // s,
+                 RP_TRAIN_W // s) for s in (32, 16, 8)]
+
+    log(f"[12 train step card vs cpu] {time.perf_counter() - t0:.1f} s")
+    out["train"] = {}
+    for name, batch, lr in RP_TRAIN:
+        t0 = time.perf_counter()
+        model = ptlflow_tpu_torch.get_model(name)
+        parity_weights(torch, name, model, None)
+        tx = ttrain.make_optimizer(lr=lr, wdecay=1e-4, total_steps=120000,
+                                   pct_start=0.05, grad_clip=1.0)
+        out["train"][name] = train_at_largest_batch(
+            torch, dev, tag, model, tx,
+            tuple(b for b in (batch, 4, 2) if b <= batch), RP_TRAIN_STEPS,
+            12, name, 12, size=(RP_TRAIN_H, RP_TRAIN_W),
+            level_shapes=level_shapes, profile_runs=1)
+        log(f"[12 train] {name}: {time.perf_counter() - t0:.1f} s with its "
+            f"profile")
+        del model, tx
+
+    # both kernels at rapidflow's 1/8 level (1024x436 padded to 1024x448)
+    # and dpflow's 1080p one (padded to 1920x1088), L2 flushed per launch
+    flush = flushes(torch, dev)["dirty"]
+    out["kernels"] = {"corr_lookup": {}, "corr_lookup_backward": {}}
+    for label, (c, h, w) in RP_KERNEL_LEVELS:
+        levels, coords, grad = level_inputs(torch, dev, 12, 1, h, w, c)
+        got = corr.corr_lookup_kernel(levels, coords, 4)
+        want = corr.corr_pyramid_lookup_plain(levels, coords, 4)
+        err = (got - want).abs().max().item()
+        if not err <= ATOL_FP32:
+            raise AssertionError(f"{label}: lookup |err| {err}")
+        del got, want
+        out["kernels"]["corr_lookup"][label] = lookup_record(
+            torch, levels, coords, 4, err, flush)
+        out["kernels"]["corr_lookup_backward"][label] = backward_record(
+            torch, levels, coords, grad, 4, flush, label)
+        del levels, coords, grad
+        for kname, recs in out["kernels"].items():
+            rec = recs[label]
+            log(f"[12 kernels] [{tag}] {kname} at {label}, Q={rec['q']}, "
+                f"level {rec['levels']}, r=4, fp32, L2 flushed per launch: "
+                f"{rec['ms']:.4f} ms by CUDA events, "
+                f"{fmt_ms(rec['profiler_ms'])} device time by the profiler; "
+                f"plain {rec['plain_ms']:.4f} ms; library "
+                f"{rec['library_ms']:.4f} ms; bound {rec['bound_ms']:.5f} ms "
+                f"by {rec['bound_by']} ({rec['bound_bytes']} bytes), kernel "
+                f"at {rec['bound_ms'] / rec['ms']:.1%} of it")
     return out
 
 
@@ -2386,17 +2694,17 @@ def profile_forward(torch, model, images, label: str, tag: str,
 
 def profile_train_step(torch, step, state, batch, level_shapes, tag: str,
                        event_ms: float, label: str = "raft",
-                       phase: int = 7) -> dict:
+                       phase: int = 7, runs: int = 2) -> dict:
     """Device time by kernel over one train step (torch.profiler, shapes
-    recorded), after a discarded profiled step: the idle share against the
-    unprofiled step time ``event_ms``, the top kernels, both lookup
-    kernels, and autograd's sums of dense level gradients (the adds whose
-    inputs have a level's (Q, H2, W2) shape).  The weights move on by two
-    steps."""
+    recorded), the last of ``runs`` profiled steps (a first absorbs the
+    tracer's start-up): the idle share against the unprofiled step time
+    ``event_ms``, the top kernels, both lookup kernels, and autograd's sums
+    of dense level gradients (the adds whose inputs have a level's (Q, H2,
+    W2) shape).  The weights move on by ``runs`` steps."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for _ in range(2):
+    for _ in range(runs):
         torch.cuda.synchronize()
         with profile(activities=acts, record_shapes=True) as prof:
             t0 = time.perf_counter()

@@ -1,4 +1,4 @@
 """Model families of the PyTorch port; importing registers them."""
 
-from . import (flowformer, flowformerplusplus, gma, lcv,  # noqa: F401
-               memflow, raft, sea_raft, skflow)
+from . import (dpflow, flowformer, flowformerplusplus, gma,  # noqa: F401
+               lcv, memflow, raft, rapidflow, rpknet, sea_raft, skflow)

@@ -59,6 +59,25 @@ class SequenceLoss:
         return loss
 
 
+def laplace_mixture_nll(flow_pred: torch.Tensor, info_pred: torch.Tensor,
+                        flow_gt: torch.Tensor, var_min: float,
+                        var_max: float) -> torch.Tensor:
+    """Laplace-mixture NLL per pixel and flow channel: flows (..., 2, H,
+    W), info (..., 4, H, W) -> (..., 2, H, W).  Info channels 0-1 are the
+    mixture's logits, 2-3 its log scales, clamped to [0, var_max] and
+    [var_min, 0] (SEA-RAFT's and DPFlow's)."""
+    raw_b = info_pred[..., 2:, :, :]
+    log_b = torch.stack([raw_b[..., 0, :, :].clamp(0, var_max),
+                         raw_b[..., 1, :, :].clamp(var_min, 0)], dim=-3)
+    weight = info_pred[..., :2, :, :]
+    err = (flow_gt - flow_pred).abs()
+    # (..., flow channel c, mixture m, H, W): |gt - pred|_c / b_m
+    term2 = err.unsqueeze(-3) * torch.exp(-log_b).unsqueeze(-4)
+    term1 = weight - math.log(2) - log_b
+    lse = torch.logsumexp(term1.unsqueeze(-4) - term2, dim=-3)
+    return torch.logsumexp(weight, dim=-3, keepdim=True) - lse
+
+
 class BasicMotionEncoder(nn.Module):
     """SEA-RAFT's motion encoder.  The correlation convolutions run in the
     correlation's dtype (``CastConv2d``), as in the JAX package."""
@@ -148,22 +167,10 @@ class SEARAFT(BaseModel):
 
     def _nf_loss(self, flow_pred: torch.Tensor, info_pred: torch.Tensor,
                  flow_gt: torch.Tensor) -> torch.Tensor:
-        """Laplace-mixture NLL per pixel and flow channel: flows (..., 2,
-        H, W), info (..., 4, H, W) -> (..., 2, H, W).  Info channels 0-1
-        are the mixture's logits, 2-3 its log scales, clamped to [0,
-        var_max] and [var_min, 0]."""
         var_max = self.var_max if self.use_var else 0
         var_min = self.var_min if self.use_var else 0
-        raw_b = info_pred[..., 2:, :, :]
-        log_b = torch.stack([raw_b[..., 0, :, :].clamp(0, var_max),
-                             raw_b[..., 1, :, :].clamp(var_min, 0)], dim=-3)
-        weight = info_pred[..., :2, :, :]
-        err = (flow_gt - flow_pred).abs()
-        # (..., flow channel c, mixture m, H, W): |gt - pred|_c / b_m
-        term2 = err.unsqueeze(-3) * torch.exp(-log_b).unsqueeze(-4)
-        term1 = weight - math.log(2) - log_b
-        lse = torch.logsumexp(term1.unsqueeze(-4) - term2, dim=-3)
-        return torch.logsumexp(weight, dim=-3, keepdim=True) - lse
+        return laplace_mixture_nll(flow_pred, info_pred, flow_gt, var_min,
+                                   var_max)
 
     def _heads(self, net: torch.Tensor, flow_8x: Optional[torch.Tensor]):
         """The flow head's step added to ``flow_8x`` (fp32), the info map

@@ -1,6 +1,7 @@
 """Layers and module helpers of the PyTorch port."""
 
-from .layers import (BatchNorm2d, CastConv2d, CastLinear,  # noqa: F401
-                     InstanceNorm2d, LayerNorm)
+from .layers import (BatchNorm2d, CastConv2d,  # noqa: F401
+                     CastConvTranspose2d, CastLinear, InstanceNorm2d,
+                     LayerNorm, LayerNorm2d)
 from .module import (STATE_LEAVES, cast_params,  # noqa: F401
                      split_trainable, train_mode)

@@ -12,6 +12,8 @@ only change how the eval forward computes, to follow
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -26,6 +28,27 @@ class CastConv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class CastConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` that runs in its input's dtype, as
+    ``CastConv2d``: the JAX package's ``ConvTranspose2d`` casts its weight
+    to ``x.dtype``.  Its seeded init is the JAX one: weight and bias
+    uniform in +-1/sqrt(in_channels / groups * kh * kw)."""
+
+    def init_own_params(self, gen: torch.Generator) -> None:
+        kh, kw = self.kernel_size
+        bound = 1.0 / math.sqrt(self.in_channels // self.groups * kh * kw)
+        for t in (self.weight, self.bias):
+            if t is not None:
+                t.copy_(torch.empty(t.shape).uniform_(-bound, bound,
+                                                      generator=gen))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(
+            x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+            self.output_padding, self.groups, self.dilation)
 
 
 class CastLinear(nn.Linear):
@@ -81,3 +104,12 @@ class LayerNorm(nn.LayerNorm):
         bias = None if self.bias is None else self.bias.float()
         return F.layer_norm(x.float(), self.normalized_shape, weight, bias,
                             self.eps).to(x.dtype)
+
+
+class LayerNorm2d(LayerNorm):
+    """:class:`LayerNorm` over the channels of each pixel of an NCHW
+    tensor: the JAX package's ``LayerNorm`` of an NHWC tensor, with the
+    same parameters."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)

@@ -1,6 +1,7 @@
 """Tensor ops of the PyTorch port, NCHW."""
 
-from .correlation import (build_corr_pyramid, coords_grid,  # noqa: F401
+from .correlation import (CorrBlock, build_corr_pyramid,  # noqa: F401
+                          coords_grid,
                           corr_pyramid_lookup,
                           corr_pyramid_lookup_backward_plain,
                           corr_pyramid_lookup_plain, make_corr_lookup)

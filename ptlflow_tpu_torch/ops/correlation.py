@@ -10,7 +10,8 @@ pyramid level ``l`` is (Q, H2/2^l, W2/2^l) with Q = B*H1*W1 queries in
 a function of the coords: the hand-written CUDA kernel
 (``csrc/corr_lookup.cu``) for a pyramid on the card, the plain PyTorch
 version :func:`corr_pyramid_lookup_plain` for one on the CPU.
-:func:`corr_pyramid_lookup` is the same as a one-shot call.
+:func:`corr_pyramid_lookup` is the same as a one-shot call, and
+:class:`CorrBlock` the pyramid of two feature maps with its prepared lookup.
 
 The lookup is differentiable with respect to the pyramid, never the coords,
 as RAFT trains it (the JAX package stops the coords' gradient).  On the
@@ -368,6 +369,26 @@ def corr_lookup_kernel(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
 
 
 corr_lookup_kernel.launches = 0
+
+
+class CorrBlock:
+    """RAFT's correlation block (``ptlflow_tpu/ops/correlation.py::CorrBlock``):
+    the ``num_levels``-level pyramid of ``fmap1`` against ``fmap2``
+    (:func:`build_corr_pyramid`) and its lookup at ``radius``
+    (:func:`make_corr_lookup`), both prepared once, here.  Each call is then
+    one lookup: one launch of ``csrc/corr_lookup.cu`` for features on the
+    card, the plain version for features on the CPU.  The JAX class looks
+    the pyramid up afresh on every call; the numbers are the same."""
+
+    def __init__(self, fmap1: torch.Tensor, fmap2: torch.Tensor,
+                 num_levels: int = 4, radius: int = 4,
+                 dtype: Optional[torch.dtype] = None):
+        self.pyramid = build_corr_pyramid(fmap1, fmap2, num_levels, dtype)
+        self.lookup = make_corr_lookup(self.pyramid, radius)
+
+    def __call__(self, coords: torch.Tensor) -> torch.Tensor:
+        """(B, L*(2r+1)^2, H1, W1), as :func:`corr_pyramid_lookup`."""
+        return self.lookup(coords)
 
 
 def corr_lookup_backward_kernel(grad_out: torch.Tensor, coords: torch.Tensor,

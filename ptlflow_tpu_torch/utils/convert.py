@@ -1,9 +1,10 @@
 """JAX parameter trees to the port's ``state_dict``.
 
 The inverse of ``Module.from_torch`` in ``ptlflow_tpu/nn/module.py``: nested
-names become dotted ones, convolution weights go from HWIO back to OIHW,
-linear weights from (in, out) back to (out, in), and every BatchNorm gets
-the ``num_batches_tracked`` counter that the JAX tree drops.  Takes numpy
+names become dotted ones, convolution weights (``CONV_WEIGHTS``) go from
+HWIO back to OIHW, linear weights from (in, out) back to (out, in), and
+every BatchNorm gets the ``num_batches_tracked`` counter that the JAX tree
+drops.  Takes numpy
 leaves (the caller converts JAX arrays), so nothing here imports JAX.
 
 A 2-D ``weight`` is a linear layer's unless the target module says it is an
@@ -25,6 +26,12 @@ from typing import Any, Dict, Optional, Set
 
 import numpy as np
 import torch
+
+# Convolution weights, stored HWIO by the JAX package: a convolution's, and
+# the two rank-1 factors of NeXt1D's depthwise kernel
+# (ptlflow_tpu/models/rapidflow/next1d.py:56-64).  ``ConvTranspose2d``'s
+# (kh, kw, O, I) takes the same transpose to torch's (I, O, kh, kw).
+CONV_WEIGHTS = ("weight", "weight_h", "weight_v")
 
 # Buffers that the JAX package computes where the reference stores them:
 # GMA's relative positions, LCV-RAFT's identity (ptlflow_tpu/models/lcv/
@@ -89,7 +96,7 @@ def _convert(params: Dict[str, Any], prefix: str,
             out.update(_convert(v, name + ".", embeddings))
             continue
         a = np.asarray(v)
-        if k == "weight" and a.ndim == 4:  # conv HWIO -> OIHW
+        if k in CONV_WEIGHTS and a.ndim == 4:  # conv HWIO -> OIHW
             a = np.transpose(a, (3, 2, 0, 1))
         elif k == "weight" and a.ndim == 2 and name not in embeddings:
             a = a.T  # linear (in, out) -> (out, in)

@@ -10,7 +10,8 @@ mode in the port and refuses a model without one, where the JAX
 ``model_benchmark.py`` (:147-152) casts weights and images for every
 model: its bfloat16 coords meet the port's lookup, which takes float32
 coords only (ROADMAP.md, section 3).  Weights are drawn and conditioned as
-``tests/test_torch_skflow.py`` says.
+``tests/test_torch_skflow.py`` says (``dpflow``'s as
+``tests/test_torch_rapidflow.py`` says).
 """
 
 import numpy as np
@@ -26,8 +27,11 @@ from ptlflow_tpu import nn as jnn
 from ptlflow_tpu_torch.ops import correlation as tcorr
 from ptlflow_tpu_torch.scripts import infer as tinfer
 from ptlflow_tpu_torch.scripts import model_benchmark as tbench
+from ptlflow_tpu_torch.scripts.validate import cast_to_bf16
 from ptlflow_tpu_torch.utils import flow_io, image_io
 from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+from tests import test_torch_rapidflow
+from tests.test_torch_recurrent_pyramid_train import DP_TRAIN
 from tests.test_torch_skflow import H, ITERS, build
 
 
@@ -82,3 +86,24 @@ def test_model_benchmark_bf16_is_the_mixed_mode():
     coords = tcorr.coords_grid(1, 4, 6, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="float32"):
         tcorr.make_corr_lookup(pyramid, 1)(coords)
+
+
+def test_validate_bf16_cast_of_dpflow_matches_jax():
+    """``validate --bf16`` of ``dpflow`` (on the allow-list: its weights
+    cast to bf16, each layer casting them back to its fp32 input's dtype)
+    at 64x96, at ``DP_TRAIN``'s narrow widths: the flow within 5e-3 px of
+    the JAX package's forward with ``cast_params(params, bfloat16)``, and
+    off the fp32 forward by more than that (the cast took place)."""
+    jmodel, tmodel, _ = test_torch_rapidflow.build("dpflow", 161, **DP_TRAIN)
+    images = test_torch_rapidflow.images_of(161)
+    x = {"images": jnp.asarray(images)}
+    forward = jax.jit(lambda p, x: jmodel.forward(p, x))
+    want = np.asarray(forward(jnn.cast_params(jmodel.params, jnp.bfloat16),
+                              x)["flows"])
+    fp32 = np.asarray(forward(jmodel.params, x)["flows"])
+    assert cast_to_bf16(tmodel, "dpflow")
+    assert tmodel.fnet.up_gru.weight.dtype == torch.bfloat16
+    got = tmodel({"images": torch.from_numpy(images)})["flows"]
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-3)
+    assert np.abs(got.numpy() - fp32).max() > 5e-3

@@ -72,9 +72,11 @@ def test_port_sources_import_no_jax():
     assert not offenders
 
 
-PORTED = ["flowformer", "flowformer_pp", "gma", "lcv_raft", "lcv_raft_small",
-          "memflow", "memflow_t", "raft", "raft_small", "sea_raft",
-          "sea_raft_l", "sea_raft_m", "sea_raft_s", "skflow"]
+PORTED = ["dpflow", "flowformer", "flowformer_pp", "gma", "lcv_raft",
+          "lcv_raft_small", "memflow", "memflow_t", "raft", "raft_small",
+          "rapidflow", "rapidflow_it1", "rapidflow_it2", "rapidflow_it3",
+          "rapidflow_it6", "rpknet", "sea_raft", "sea_raft_l", "sea_raft_m",
+          "sea_raft_s", "skflow"]
 
 
 def test_registry():
@@ -85,7 +87,8 @@ def test_registry():
         n for n in PORTED if n in ptlflow_tpu.get_trainable_model_names()]
     assert "flowformer_pp" not in ptlflow_tpu_torch.get_trainable_model_names()
     assert ptlflow_tpu_torch.get_ptlflow_trained_model_names() == [
-        "gma", "raft", "raft_small"]
+        "dpflow", "gma", "raft", "raft_small", "rapidflow", "rapidflow_it1",
+        "rapidflow_it2", "rapidflow_it3", "rapidflow_it6", "rpknet"]
     assert ptlflow_tpu_torch.get_model_reference("raft").__name__ == "raft"
     with pytest.raises(ValueError):
         ptlflow_tpu_torch.get_model_reference("no_such_model")
@@ -182,13 +185,17 @@ def test_checkpoint_round_trip(tmp_path):
     assert dst.train_size == (368, 496)
 
 
-@pytest.mark.parametrize("name,extra", [("memflow", "network."),
-                                        ("lcv_raft", "corr_block.eye")])
+@pytest.mark.parametrize("name,extra", [
+    ("memflow", "network."), ("lcv_raft", "corr_block.eye"),
+    ("rapidflow", "fnet.rec_stage.blocks.0.conv_dw.weight_h"),
+    ("rpknet", "fnet.rec_stage.blocks.0.layer_scale_1"),
+    ("dpflow", "fnet.up_gru.weight")])
 def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     """A Lightning-style .ckpt in the reference's layout, converted from a
     JAX tree (MemFlow nests its net under ``network.``, LCV-RAFT stores
-    ``corr_block.eye``), loads into ``get_model`` strictly, every tensor
-    equal."""
+    ``corr_block.eye``, RAPIDFlow its NeXt1D factors, RPKNet its layer
+    scales, DPFlow the transposed convolution ``up_gru``), loads into
+    ``get_model`` strictly, every tensor equal."""
     import jax
 
     from ptlflow_tpu_torch.utils.convert import state_dict_from_jax
