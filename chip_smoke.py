@@ -12,8 +12,11 @@ Phases, each of which must pass, else the script exits non-zero:
    level, one query, a prime Q and coords far outside the map, and at the
    main paths' shapes (phase 12's one-level lookups among them: Q = 448 on
    rapidflow's 14x32 level, Q = 32,640 on dpflow's 136x240 level at
-   1080p, its training levels): the lookup, and the lookup's backward
-   (which must also give the same bits twice);
+   1080p, its training levels; phase 13's Q = 21,120 pyramid, neuflow2's
+   1/16 level and streamflow's training pyramid): the lookup, and the
+   lookup's backward (which must also give the same bits twice); and the
+   coords' gradient of ``neuflow2``'s lookups against autograd of the
+   plain version;
 3. serve 3 frame pairs at 436x1024 through ``raft`` and ``raft_small``
    (12 GRU iterations), ``sea_raft_m`` (4 refinements), ``sea_raft_l``
    (12) and ``gma`` (12), with seeded random weights, via IOAdapter ->
@@ -97,7 +100,27 @@ Phases, each of which must pass, else the script exits non-zero:
     loss) on both; train ``rapidflow`` and ``dpflow`` at 352x480 as their
     chairs configs set it (batch 8 and 5), counting 12 lookups and 12
     backward lookups a step; and time both kernels at ``rapidflow``'s 1/8
-    level and ``dpflow``'s 1080p one.
+    level and ``dpflow``'s 1080p one;
+13. CRAFT, NeuFlow v2, VideoFlow (BOF, MOF) and StreamFlow, the
+    attention-built cost volume, two-scale global matching and the
+    multi-frame models: serve 3 consecutive windows of one sequence at
+    436x1024 through each (``craft`` pairs warm-started from the last's
+    ``flow_small``, ``neuflow2`` cold pairs, ``videoflow_bof`` 3 and
+    ``videoflow_mof`` 5 frames with their backward flows, ``streamflow`` 4
+    frames and 3 flows), counting 32, 9, 64, 64 and 15 lookups a forward;
+    time and profile each fp32 forward with its peak memory (CRAFT's
+    attention GEMMs, the depthwise convolutions by kernel name) and
+    ``craft``'s ``validate --bf16`` cast; the flows of all five at
+    256x320 on the card against the CPU; one train step at 128x160 of
+    ``craft``, ``neuflow2`` (whose lookups give the coords a gradient: 4
+    more forward launches each) and ``streamflow`` (4 frames, 3 flows) on
+    both; train ``craft`` (12 iterations) and ``streamflow`` at 368x496 at
+    the largest batch that fits and ``neuflow2`` at batch 8, counting
+    lookups and backward lookups a step; and time both kernels at
+    ``videoflow_mof``'s and ``streamflow``'s pyramid (Q = 21,120; phase 2
+    checks them there, at ``neuflow2``'s 1/16 level and at
+    ``streamflow``'s training pyramid, and the coords' gradient at
+    ``neuflow2``'s training levels).
 
 ``--against`` builds other versions of ``csrc/corr_lookup.cu`` (the same C
 interface) and times each in turns with the repo's kernel on the same
@@ -105,9 +128,10 @@ inputs (other, repo, repo, other), in the same run.
 
 The second-to-last line is ``{"kernels": [...]}``, the line before it the
 card's name and power limit (after ``{"harness": ...}``,
-``{"train_cli": ...}``, ``{"flowformer": ...}``, ``{"sk_family": ...}``
-and ``{"recurrent_pyramid": ...}``, phases 8-12's numbers), and the last
-line ``{"ok": true, "device": {...}}``.  With no card it prints no result
+``{"train_cli": ...}``, ``{"flowformer": ...}``, ``{"sk_family": ...}``,
+``{"recurrent_pyramid": ...}`` and ``{"video_and_attention": ...}``,
+phases 8-13's numbers), and the last line ``{"ok": true, "device":
+{...}}``.  With no card it prints no result
 and exits 2.
 """
 
@@ -148,6 +172,10 @@ ATOL_CARD_CPU_PX = 1e-2
 # Backward kernel against its plain version: fp32 max |err| relative to the
 # largest gradient; bf16 as the forward.
 RTOL_BWD_FP32 = 1e-5
+# The coords' gradient through the kernel (NeuFlow v2) against autograd of
+# the plain version: a sum of 81 products of the output's gradient and a
+# difference of two lookups, each within ATOL_FP32, relative to the largest
+RTOL_COORDS_GRAD = 1e-4
 # raft-train1-chairs.yaml (ptlflow_tpu/models/raft/configs): crops, batch
 TRAIN_B, TRAIN_H, TRAIN_W = 10, 368, 496
 TRAIN_STEPS = 5
@@ -200,6 +228,20 @@ RP_TRAIN_STEPS = 4
 # at: rapidflow's 1/8 level of 1024x448, dpflow's of 1920x1088
 RP_KERNEL_LEVELS = (("rapidflow 1/8", (128, 56, 128)),
                     ("dpflow 1080p 1/8", (256, 136, 240)))
+# Phase 13: CRAFT, NeuFlow v2, VideoFlow (BOF, MOF) and StreamFlow at their
+# registered depths: (model, lookup launches a forward, frames a window).
+# NeuFlow v2 resizes 1024x436 to 1024x448: 1 lookup at 1/16 and 8 at 1/8
+VA_SERVE = (("craft", 32, 2), ("neuflow2", 9, 2), ("videoflow_bof", 64, 3),
+            ("videoflow_mof", 64, 5), ("streamflow", 15, 4))
+# training at 368x496: craft at iters=12 (as raft-train1-chairs.yaml sets
+# RAFT; the repo has no CRAFT train config) and streamflow at its 15 on 4
+# frames, each at the first of its VA_TRAIN_BATCHES that fits (streamflow's
+# batches 8 and 6 ran out of 80 GB, as 4 did, on the H100); neuflow2 at 8
+VA_TRAIN_BATCHES = {"craft": (8, 6, 4, 2), "streamflow": (4, 3, 2)}
+VA_TRAIN_STEPS = 4
+# the lookups of videoflow_mof (5 frames) and streamflow (4) at 1024x436:
+# Q = 3 x 55 x 128 on the 4 levels 55x128 ... 6x16
+VA_KERNEL_Q = (3, 55, 128)
 # DeviceCompose, card against CPU on one Chairs sample, the same draws and
 # one noise field: float32 sums of the same few terms in another order
 ATOL_AUG_IMAGES, ATOL_AUG_FLOWS_PX = 1e-5, 1e-4
@@ -337,22 +379,26 @@ def smooth_pair(seed: int, h: int, w: int, shift=(3, 2)):
     return tuple(smooth_frames(seed, h, w, 2, shift))
 
 
-def train_batch(torch, seed: int, b: int, h: int, w: int, dev) -> dict:
+def train_batch(torch, seed: int, b: int, h: int, w: int, dev,
+                frames: int = 2) -> dict:
     """A batch of the JAX package's train step in the port's layout:
-    ``images`` (B, 2, 3, H, W) in [0, 1], ``b`` smooth pairs each moved by
-    its own whole-pixel shift; ``flows`` (B, 1, 2, H, W), that shift; and
-    ``valids`` (B, 1, 1, H, W), a fifth of the pixels 0."""
+    ``images`` (B, F, 3, H, W) in [0, 1], ``b`` smooth sequences of
+    ``frames`` frames, each moved by its own whole-pixel shift a frame;
+    ``flows`` (B, F - 1, 2, H, W), that shift; and ``valids`` (B, F - 1, 1,
+    H, W), a fifth of the pixels 0."""
     rng = np.random.RandomState(seed)
     images, flows = [], []
     for k in range(b):
         shift = (int(rng.randint(-4, 5)), int(rng.randint(-4, 5)))
-        images.append(np.stack(smooth_pair(seed * 100 + k, h, w, shift)))
+        images.append(np.stack(smooth_frames(seed * 100 + k, h, w, frames,
+                                             shift)))
         flows.append(np.broadcast_to(
-            np.array(shift, np.float32)[:, None, None], (2, h, w)))
+            np.array(shift, np.float32)[None, :, None, None],
+            (frames - 1, 2, h, w)))
     images = torch.from_numpy(np.stack(images).astype(np.float32) / 255.0)
-    valids = (rng.rand(b, 1, 1, h, w) > 0.2).astype(np.float32)
+    valids = (rng.rand(b, frames - 1, 1, h, w) > 0.2).astype(np.float32)
     return {"images": images.permute(0, 1, 4, 2, 3).contiguous().to(dev),
-            "flows": torch.from_numpy(np.stack(flows)[:, None]).to(dev),
+            "flows": torch.from_numpy(np.stack(flows)).to(dev),
             "valids": torch.from_numpy(valids).to(dev)}
 
 
@@ -537,6 +583,57 @@ def condition_flowformer(torch, model) -> None:
         conv.bias.mul_(0.01)
 
 
+def condition_video_and_attention(torch, name: str, model) -> None:
+    """Phase 13's models, conditioned to steps of trained size with their
+    zero-init parameters drawn (a zero tests nothing), as their CPU tests
+    do.  CRAFT: the sliding positional biases (zero at init) seeded
+    uniform in +-0.1, seeded BatchNorms, the flow head damped by 0.01 (32
+    iterations, as LCV-RAFT's).  NeuFlow v2: seeded BatchNorms, the
+    refiners' flow steps damped by 0.03.  VideoFlow
+    and StreamFlow: ``condition_super_kernel`` and seeded layer scales
+    (GMA's aggregator ``gamma``); MOF's mask convolution by 0.01 more (it
+    multiplies the mask by 100); StreamFlow's temporal transformer (zero
+    at init) seeded: linear weights uniform in +-1/sqrt(fan-in), biases
+    normal with std 0.1, norm weights 1 + that."""
+    gen = torch.Generator().manual_seed(13)
+    if name in ("craft", "neuflow2"):
+        randomise_norms(torch, model, 13)
+    if name == "craft":
+        damp_flow_head(model, 0.01)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n.endswith("pos_coder.biases"):
+                    p.copy_(torch.empty(p.shape).uniform_(-0.1, 0.1,
+                                                          generator=gen))
+        return
+    if name == "neuflow2":
+        # random refiners step ~1400 px at 256x320, and one rounding of the
+        # input moves a train step's whole gradient by 2.6e-3; the flow
+        # channels of both refiners' last convolution damped by 0.03: 59 px
+        # (the global matching's), 2.5e-5
+        with torch.no_grad():
+            for refine in (model.refine_s16, model.refine_s8):
+                refine.conv3.weight[:2].mul_(0.03)
+                refine.conv3.bias[:2].mul_(0.03)
+        return
+    condition_super_kernel(torch, model)
+    set_layer_scales(torch, model, 13)
+    with torch.no_grad():
+        if name == "videoflow_mof":
+            for leaf in ("weight", "bias"):
+                getattr(model.update_block.mask[2], leaf).mul_(0.01)
+        if name == "streamflow":
+            block = model.update_block.transformer_block
+            for n, p in block.named_parameters():
+                if p.dim() == 2:
+                    bound = p.shape[1] ** -0.5
+                    p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
+                                                          generator=gen))
+                else:
+                    base = 1.0 if "norm" in n and n.endswith("weight") else 0
+                    p.copy_(base + 0.1 * torch.randn(p.shape, generator=gen))
+
+
 def parity_weights(torch, name: str, model, images) -> None:
     """Random weights conditioned to steps of trained size, so that two
     correct runs agree (random RAFT-family weights are chaotic: fp32
@@ -550,9 +647,13 @@ def parity_weights(torch, name: str, model, images) -> None:
     ``draw_factors`` and the flow head damped by 0.03.  SKFlow and MemFlow:
     ``condition_super_kernel``, seeded norms and layer scales (the memory
     readout's ``gamma`` among them).  LCV-RAFT: RAFT's flow head damped by
-    0.01 (32 iterations), seeded norms and ``learned_metric``."""
+    0.01 (32 iterations), seeded norms and ``learned_metric``.  CRAFT,
+    NeuFlow v2, VideoFlow, StreamFlow: ``condition_video_and_attention``."""
     if name.startswith("flowformer"):
         condition_flowformer(torch, model)
+        return
+    if name in {n for n, _, _ in VA_SERVE}:
+        condition_video_and_attention(torch, name, model)
         return
     if name.startswith(("rapidflow", "rpknet", "dpflow")):
         draw_factors(torch, model, 1)
@@ -637,7 +738,8 @@ def served_model(torch, name: str, args: dict, images):
 
 
 def train_step_card_vs_cpu(torch, name: str, dev, args=None,
-                           lookups: int = 2) -> dict:
+                           lookups=2, frames: int = 2,
+                           batch_seed: int = 5) -> dict:
     """One train step of ``name`` at 128x160, batch 2, 2 iterations (or
     the ``args`` that set 2 decoder steps, or 2 steps a level), on the
     CPU and on the card from the same weights (``parity_weights``), and on
@@ -645,7 +747,9 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
     RTOL_LOSS, the BatchNorm statistics within ATOL_BN and the whole
     gradient within GRAD_RTOL, by its largest element and by its norm; the
     per-tensor figures printed beside those of the nudged CPU run.  The card
-    step must launch each kernel ``lookups`` times."""
+    step must launch each kernel ``lookups`` times (a pair: the forward
+    kernel's launches, the backward's).  The batch holds sequences of
+    ``frames`` frames (``train_batch``, seeded with ``batch_seed``)."""
     import ptlflow_tpu_torch
     from ptlflow_tpu_torch.nn import split_trainable
     from ptlflow_tpu_torch.ops import correlation as corr
@@ -653,8 +757,9 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
 
     args = {"iters": 2} if args is None else args
     cpu_model = ptlflow_tpu_torch.get_model(name, args=args, device="cpu")
-    batch = train_batch(torch, 5, 2, 128, 160, "cpu")
+    batch = train_batch(torch, batch_seed, 2, 128, 160, "cpu", frames)
     parity_weights(torch, name, cpu_model, batch["images"])
+    expected = lookups if isinstance(lookups, tuple) else (lookups, lookups)
     gpu_model = ptlflow_tpu_torch.get_model(name, args=args)
     gpu_model.load_state_dict(cpu_model.state_dict())
     # the CPU again, on images one fp32 rounding off (x (1 + 2^-23))
@@ -674,10 +779,10 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
         if label == "card":
             card_launches = (corr.corr_lookup_kernel.launches,
                              corr.corr_lookup_backward_kernel.launches)
-            if card_launches != (lookups, lookups):
+            if card_launches != expected:
                 raise AssertionError(f"{name} card train step: launches "
-                                     f"{card_launches}, expected {lookups} "
-                                     f"of each kernel")
+                                     f"{card_launches}, expected "
+                                     f"{expected}")
     (cl, names, cg, cs, cn), (gl, _, gg, gs, gn) = (step_out["cpu"],
                                                     step_out["card"])
     gmax = max(g.abs().max().item() for g in cg)
@@ -702,8 +807,8 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
             + ", ".join(f"{n} {r:.2e}" for r, n in ratios[-4:])
             + f" ({sum(r > GRAD_RTOL for r, _ in ratios)} of {len(ratios)} "
             f"over {GRAD_RTOL})")
-    log(f"[4 card vs cpu] {name} train step, 2x128x160, {lookups} "
-        f"lookups: loss "
+    log(f"[4 card vs cpu] {name} train step, 2x128x160, {expected} "
+        f"launches: loss "
         f"{gl:.7f} on the card, {cl:.7f} on the CPU; grad norm {gn:.6f} / "
         f"{cn:.6f}; the whole gradient: max |dg| / max |g| {glob_max:.2e}, "
         f"|dg| / |g| {glob_norm:.2e} (tolerance {GRAD_RTOL}); BN statistics "
@@ -720,6 +825,53 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
     return {"loss": [gl, cl], "grad_max_rel": glob_max,
             "grad_norm_rel": glob_norm, "bn_err": bn_err,
             "launches": card_launches}
+
+
+def coords_grad_check(torch, dev, case_inputs) -> None:
+    """Phase 2, NeuFlow v2's lookups: prepared with ``coords_grad``, on
+    its training levels at 368x496, batch 8 (1/16: Q = 5704 on 23x31;
+    1/8: Q = 22,816 on 46x62), autograd through the kernel gives the coords
+    and the level the gradients of autograd through the plain version on
+    the same inputs: the level's within RTOL_BWD_FP32, the coords' within
+    RTOL_COORDS_GRAD of the largest, with the forward kernel launched 1 +
+    4 times and the backward once."""
+    from ptlflow_tpu_torch.ops import correlation as corr
+
+    for s in (16, 8):
+        h, w = -(-TRAIN_H // s), -(-TRAIN_W // s)
+        pyr, coords = case_inputs(8, h, w, h, w, 128, -0.1, 1.1, 1)
+        grad = torch.randn((8, 81, h, w),
+                           generator=torch.Generator().manual_seed(s)).to(dev)
+        got = {}
+        for label in ("kernel", "plain"):
+            lvl = pyr[0].detach().requires_grad_()
+            c = coords.detach().requires_grad_()
+            before = (corr.corr_lookup_kernel.launches,
+                      corr.corr_lookup_backward_kernel.launches)
+            if label == "kernel":
+                out = corr.make_corr_lookup([lvl], 4, coords_grad=True)(c)
+            else:
+                out = corr.corr_pyramid_lookup_plain([lvl], c, 4)
+            got[label] = torch.autograd.grad(out, [c, lvl], grad)
+            torch.cuda.synchronize()
+            n = (corr.corr_lookup_kernel.launches - before[0],
+                 corr.corr_lookup_backward_kernel.launches - before[1])
+            if label == "kernel" and n != (5, 1):
+                raise AssertionError(f"coords gradient at 1/{s}: launches "
+                                     f"{n}, expected (5, 1)")
+        errs = []
+        for k, (g, wp) in enumerate(zip(got["kernel"], got["plain"])):
+            err = (g - wp).abs().max().item()
+            gmax = wp.abs().max().item()
+            tol = (RTOL_COORDS_GRAD if k == 0 else RTOL_BWD_FP32) * gmax
+            errs.append((err, gmax))
+            if not err <= tol:
+                raise AssertionError(f"coords gradient at 1/{s}: |err| "
+                                     f"{err} of {gmax}")
+        log(f"[2 coords gradient] neuflow2 1/{s} train level Q={8 * h * w}, "
+            f"{h}x{w}, r=4: coords max |err| {errs[0][0]:.3e} of max |grad| "
+            f"{errs[0][1]:.3e}, level {errs[1][0]:.3e} of {errs[1][1]:.3e}; "
+            f"5 forward and 1 backward launches")
 
 
 def patch_traffic(torch, coords, shapes, radius: int, elt: int):
@@ -858,6 +1010,15 @@ def main(argv=None) -> int:
                   ("rapidflow 1/8 Q=7168", (128, 56, 128)),
                   ("dpflow 1080p 1/8 Q=32640", (256, 136, 240)),
                   ("dpflow 1080p 1/64 Q=510", (256, 17, 30)))]
+    # phase 13's: videoflow_mof's and streamflow's 3 pairs at 1024x436 (Q =
+    # 21,120 on 4 levels), neuflow2's 1/16 level of 1024x448 (Q = 1792 on
+    # 28x64; its 1/8 level is rapidflow's 56x128 above)
+    b3, _, _ = VA_KERNEL_Q
+    cases += [(f"videoflow_mof/streamflow Q={b3 * hp * wp}, r=4",
+               (b3, hp, wp, hp, wp, 256, -0.1, 1.1), 4, dtype)
+              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [("neuflow2 1/16 Q=1792, 1 level, r=4",
+               (1, 28, 64, 28, 64, 128, -0.1, 1.1, 1), 4, torch.float32)]
     far = torch.tensor([1e7, -1e7, 3.5, -2.5e6, 2.5], device=dev)
     main_err = None
     main_inputs = {}
@@ -910,6 +1071,11 @@ def main(argv=None) -> int:
                    (5, h, w, h, w, 256, -0.1, 1.1, 1), 4, torch.float32)
                   for h, w in ((RP_TRAIN_H // 32, RP_TRAIN_W // 32),
                                (RP_TRAIN_H // 8, RP_TRAIN_W // 8))]
+    # streamflow's training pyramid at 368x496, batch 4: Q = 3 x 4 x 2852 on
+    # 46x62 ... 5x7
+    bwd_cases += [(f"streamflow train Q={3 * 4 * th * tw}, r=4",
+                   (3 * 4, th, tw, th, tw, 256, -0.1, 1.1), 4,
+                   torch.float32)]
     worst_bwd = {torch.float32: 0.0, torch.bfloat16: 0.0}
     train_inputs, bwd_err, bwd_gmax = None, None, None
     for label, shape, radius, dtype in bwd_cases:
@@ -956,6 +1122,7 @@ def main(argv=None) -> int:
         f"|err| / max |grad| {worst_bwd[torch.float32]:.3e} (tolerance "
         f"{RTOL_BWD_FP32}), worst bf16 {worst_bwd[torch.bfloat16]:.3e} (rtol "
         f"{RTOL_BF16}); bitwise repeatable")
+    coords_grad_check(torch, dev, case_inputs)
 
     # ---------------------------------------------------------------- 3
     pairs = [smooth_pair(seed, H, W, shift=(2 + seed, 1 + seed))
@@ -1383,6 +1550,18 @@ def main(argv=None) -> int:
     for name, path in rp_train_paths.items():
         launches[path] = sum(rp["train"][name]["lookup"])
 
+    # ---------------------------------------------------------------- 13
+    t13 = time.perf_counter()
+    va = video_and_attention_phase(torch, dev, tag)
+    log(f"[13] {time.perf_counter() - t13:.1f} s")
+    launches.update(va["launches"])
+    va_train_paths = {
+        name: (f"{name} train, {VA_TRAIN_STEPS} steps at {TRAIN_W}x"
+               f"{TRAIN_H}, batch {rec['batch']}")
+        for name, rec in va["train"].items()}
+    for name, path in va_train_paths.items():
+        launches[path] = sum(va["train"][name]["lookup"])
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -1416,6 +1595,7 @@ def main(argv=None) -> int:
         "train_launches_per_step": train["lookup"],
         "flowformer_shape": ff["kernels"]["corr_lookup"],
         "recurrent_pyramid_shapes": rp["kernels"]["corr_lookup"],
+        "video_and_attention_shapes": va["kernels"]["corr_lookup"],
     }, {
         "name": "corr_lookup_backward",
         "route": "cuda",
@@ -1436,7 +1616,11 @@ def main(argv=None) -> int:
                check["launches"][1]
                for name, check in rp["train_step_card_vs_cpu"].items()},
             **{path: sum(rp["train"][name]["lookup_backward"])
-               for name, path in rp_train_paths.items()}),
+               for name, path in rp_train_paths.items()},
+            **{f"{name} train step at 128x160, 2 steps": check["launches"][1]
+               for name, check in va["train_step_card_vs_cpu"].items()},
+            **{path: sum(va["train"][name]["lookup_backward"])
+               for name, path in va_train_paths.items()}),
         "max_abs_err": bwd_err,
         "max_abs_grad": bwd_gmax,
         "ms": bwd_ms,
@@ -1449,6 +1633,8 @@ def main(argv=None) -> int:
         "level_sums_ms": 11 * sum_ms,
         "flowformer_shape": ff["kernels"]["corr_lookup_backward"],
         "recurrent_pyramid_shapes": rp["kernels"]["corr_lookup_backward"],
+        "video_and_attention_shapes":
+            va["kernels"]["corr_lookup_backward"],
     }]
     if against:
         kernels[0]["against"] = against
@@ -1464,6 +1650,9 @@ def main(argv=None) -> int:
     log(json.dumps({"sk_family": sk, "card": tag}))
     log(json.dumps({"recurrent_pyramid": {k: v for k, v in rp.items()
                                           if k != "kernels"},
+                    "card": tag}))
+    log(json.dumps({"video_and_attention": {k: v for k, v in va.items()
+                                            if k != "kernels"},
                     "card": tag}))
     log(tag)
     log(json.dumps({"kernels": kernels}))
@@ -1980,17 +2169,19 @@ def check_flows(torch, name: str, out, shape) -> None:
 def train_at_largest_batch(torch, dev, tag: str, model, tx, batch_sizes,
                            n_steps: int, depth: int, label: str,
                            phase: int, size=(TRAIN_H, TRAIN_W),
-                           level_shapes=None, profile_runs: int = 2) -> dict:
+                           level_shapes=None, profile_runs: int = 2,
+                           frames: int = 2, launches=None) -> dict:
     """``n_steps`` train steps of ``model`` at ``size`` (TRAIN_H x TRAIN_W)
     through
     ``build_train_step`` with optimizer ``tx``, at the first of
     ``batch_sizes`` that fits the card (a batch that runs out of memory is
-    logged and the next tried), each on its own seeded synthetic batch,
-    timed by CUDA events, with ``depth`` launches of each lookup kernel a
-    step asserted; then one step profiled.  Returns the per-step ms, loss
-    and launches, the median of steps 2 on, samples/s, the peak memory and
-    that above what was allocated before the first step, and the
-    profile (``level_shapes(batch)``: the levels' (Q, H, W), whose dense
+    logged and the next tried), each on its own seeded synthetic batch of
+    sequences of ``frames`` frames, timed by CUDA events, with ``depth``
+    launches of each lookup kernel a step asserted (or ``launches``, the
+    forward kernel's and the backward's); then one step profiled.
+    Returns the per-step ms, loss and launches, the median of steps 2 on,
+    samples/s, the peak memory and that above what was allocated before
+    the first step, and the profile (``level_shapes(batch)``: the levels' (Q, H, W), whose dense
     gradient sums it counts; by default RAFT's one 1/8 level)."""
     from ptlflow_tpu_torch.ops import correlation as corr
     from ptlflow_tpu_torch.parallel import train as ttrain
@@ -2000,8 +2191,8 @@ def train_at_largest_batch(torch, dev, tag: str, model, tx, batch_sizes,
     crop_h, crop_w = size
     train = None
     for b in batch_sizes:
-        batches = [train_batch(torch, 300 + k, b, crop_h, crop_w, dev)
-                   for k in range(n_steps)]
+        batches = [train_batch(torch, 300 + k, b, crop_h, crop_w, dev,
+                               frames) for k in range(n_steps)]
         rec = {"batch": b, "step_ms": [], "loss": [], "lookup": [],
                "lookup_backward": []}
         torch.cuda.synchronize()
@@ -2042,9 +2233,10 @@ def train_at_largest_batch(torch, dev, tag: str, model, tx, batch_sizes,
         if not math.isfinite(loss):
             raise AssertionError(f"{label} train step {k + 1}: non-finite "
                                  f"loss")
-        if (nf, nb) != (depth, depth):
+        if (nf, nb) != (launches or (depth, depth)):
             raise AssertionError(f"{label} train step {k + 1}: expected "
-                                 f"{depth} launches of each kernel")
+                                 f"{launches or depth} launches of each "
+                                 f"kernel")
     later = sorted(train["step_ms"][1:])
     train["median_step_ms"] = later[len(later) // 2]
     train["samples_per_s"] = train["batch"] / train["median_step_ms"] * 1e3
@@ -2427,13 +2619,15 @@ def sk_family_phase(torch, dev, tag: str) -> dict:
 
 
 def serve_sequence(torch, name: str, model, frames, depth: int, shape,
-                   phase: int):
-    """The consecutive pairs of ``frames`` through ``model`` via IOAdapter
-    -> model -> unscale, each warm-started from the last: RAPIDFlow from
-    the previous pair's full-size ``flows`` (it gives no ``flow_small``),
-    the others from its ``flow_small``.  Asserts each pair's flows of
-    ``shape`` finite, no autograd graph and ``depth`` lookup launches.
-    Returns the launches and the last pair's inputs."""
+                   phase: int, window: int = 2, warm: bool = True):
+    """The consecutive windows of ``window`` frames of ``frames`` (pairs,
+    by default) through ``model`` via IOAdapter -> model -> unscale; with
+    ``warm``, each warm-started from the last: RAPIDFlow from the previous
+    pair's full-size ``flows`` (it gives no ``flow_small``), the others
+    from its ``flow_small``.  Asserts each window's flows (and backward
+    flows, where the model gives them) of ``shape`` finite, no autograd
+    graph and ``depth`` lookup launches.  Returns the launches and the
+    last window's inputs."""
     from ptlflow_tpu_torch.ops import correlation as corr
     from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
 
@@ -2441,24 +2635,29 @@ def serve_sequence(torch, name: str, model, frames, depth: int, shape,
     key = "flows" if name.startswith("rapidflow") else "flow_small"
     corr.corr_lookup_kernel.launches = 0
     prev = x = None
-    for k in range(len(frames) - 1):
-        x = adapter.prepare_inputs(frames[k:k + 2])
+    for k in range(len(frames) - window + 1):
+        x = adapter.prepare_inputs(frames[k:k + window])
         if prev is not None:
             x["prev_preds"] = {key: prev}
         before = corr.corr_lookup_kernel.launches
         res = model(x)
         torch.cuda.synchronize()
         n = corr.corr_lookup_kernel.launches - before
-        check_flows(torch, name, adapter.unscale(res), shape)
+        out = adapter.unscale(res)
+        check_flows(torch, name, out, shape)
+        if "flows_bw" in out:
+            check_flows(torch, name, {"flows": out["flows_bw"]}, shape)
         if n != depth:
             raise AssertionError(f"{name}: {n} lookup launches in one "
                                  f"forward, expected {depth}")
         mean = res["flows"].mean(dim=(0, 1, 3, 4)).tolist()
-        log(f"[{phase} serve] {name} pair {k} at {shape[-1]}x{shape[-2]}"
+        log(f"[{phase} serve] {name} window {k} of {window} frames at "
+            f"{shape[-1]}x{shape[-2]}"
             f"{f', warm-started from {key}' if prev is not None else ''}: "
-            f"flows finite, no grad_fn, mean ({mean[0]:.3f}, {mean[1]:.3f}) "
-            f"px, {n} lookup launches")
-        prev = res[key]
+            f"flows{' and flows_bw' if 'flows_bw' in out else ''} "
+            f"{tuple(out['flows'].shape)} finite, no grad_fn, mean "
+            f"({mean[0]:.3f}, {mean[1]:.3f}) px, {n} lookup launches")
+        prev = res[key] if warm else None
     return corr.corr_lookup_kernel.launches, x
 
 
@@ -2639,6 +2838,172 @@ def recurrent_pyramid_phase(torch, dev, tag: str) -> dict:
     return out
 
 
+def video_and_attention_phase(torch, dev, tag: str) -> dict:
+    """Phase 13: CRAFT, NeuFlow v2, VideoFlow (BOF, MOF) and StreamFlow on
+    the card at their registered depths (VA_SERVE).  Serves 3 consecutive
+    windows of one sequence at H x W through each (``craft`` pairs each
+    warm-started from the last's ``flow_small``, ``neuflow2`` cold pairs,
+    VideoFlow's 3 and 5 frames with their backward flows, StreamFlow's 4
+    frames and 3 flows), counting the lookup launches of each forward and
+    asserting no autograd graph; times and profiles each fp32 forward
+    (CRAFT's attention GEMMs and the depthwise convolutions by name) with
+    its peak memory and ``craft``'s ``validate --bf16`` cast; holds the
+    card against the CPU at 256x320 (the registered depths); one train
+    step at 128x160 card against CPU of ``craft`` and ``streamflow`` (2
+    iterations) and ``neuflow2`` (1 + 2); trains ``craft`` (12
+    iterations) and ``streamflow`` (15) at TRAIN_H x TRAIN_W at the first
+    of their VA_TRAIN_BATCHES that fits and ``neuflow2`` at batch 8; and
+    times both kernels at VA_KERNEL_Q (phase 2 checks them there)."""
+    import copy
+
+    import ptlflow_tpu_torch
+    from ptlflow_tpu_torch.ops import correlation as corr
+    from ptlflow_tpu_torch.parallel import train as ttrain
+    from ptlflow_tpu_torch.scripts.validate import cast_to_bf16
+    from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+
+    out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
+           "peak_gib": {}, "forward_gib": {}, "launches": {},
+           "card_vs_cpu_px": {}}
+    # cuBLAS's GEMMs, not cuDNN's convolutions (implicit GEMMs too)
+    gemm = ("gemm", ("fprop", "dgrad", "wgrad", "conv", "implicit"))
+    named = {"craft": {"attention GEMMs": gemm, "softmax": "softmax"},
+             "neuflow2": {"GEMMs": gemm, "softmax": "softmax"}}
+    depthwise = {"depthwise conv": "depthwise", "GEMMs": gemm}
+    # 7 consecutive frames of one sequence moving (2, 1) px a frame
+    frames = smooth_frames(61, H, W, 7, shift=(2, 1))
+    for name, depth, window in VA_SERVE:
+        t0 = time.perf_counter()
+        model = ptlflow_tpu_torch.get_model(name)
+        condition_video_and_attention(torch, name, model)
+        shape = (1, 3 if name == "streamflow" else 1, 2, H, W)
+        n, x = serve_sequence(torch, name, model, frames[:window + 2], depth,
+                              shape, 13, window=window,
+                              warm=name == "craft")
+        out["launches"][f"{name} serve, 3 windows"] = n
+        time_forward(torch, model, x["images"], f"{name} fp32", tag,
+                     f"{depth} lookups", 13, out, named.get(name, depthwise),
+                     reps=5 if name in ("videoflow_mof", "streamflow")
+                     else 10)
+        if name == "craft":
+            cast = copy.deepcopy(model)
+            if not cast_to_bf16(cast, name):
+                raise AssertionError(f"{name}: not on the allow-list")
+            time_forward(torch, cast, x["images"], f"{name} bf16 cast", tag,
+                         f"{depth} lookups", 13, out, named[name])
+            del cast
+        log(f"[13 serve] {name}: {time.perf_counter() - t0:.1f} s with its "
+            f"timing")
+        del model, x
+
+    # card against CPU at 256x320, the registered depths
+    t0 = time.perf_counter()
+    seq = smooth_frames(7, 256, 320, 5, shift=(3, 2))
+    for name, depth, window in VA_SERVE:
+        cpu_model = ptlflow_tpu_torch.get_model(name, device="cpu")
+        condition_video_and_attention(torch, name, cpu_model)
+        x = IOAdapter(cpu_model).prepare_inputs(seq[:window])
+        gpu_model = ptlflow_tpu_torch.get_model(name)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        want = cpu_model(x)
+        got = gpu_model({"images": x["images"].to(dev)})
+        diff = max((got[k].cpu() - want[k]).abs().max().item()
+                   for k in ("flows", "flows_bw") if k in want)
+        out["card_vs_cpu_px"][name] = diff
+        log(f"[13 card vs cpu] {name} 256x320, {window} frames, {depth} "
+            f"lookups: max |dflow| {diff:.3e} px (flow up to "
+            f"{want['flows'].abs().max().item():.2f} px, tolerance "
+            f"{ATOL_CARD_CPU_PX} px)")
+        if not diff <= ATOL_CARD_CPU_PX:
+            raise AssertionError(f"{name}: card and CPU differ by {diff} px")
+        del cpu_model, gpu_model
+    log(f"[13 card vs cpu] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # neuflow2 at 1 + 2 steps: 3 lookups, and as its lookups give the
+    # coords a gradient, 4 more launches of the forward kernel each in the
+    # backward
+    # craft on batch seed 6: on seed 5 a ReLU input of the feature encoder
+    # lies within rounding of 0, and the CPU with its input one rounding
+    # off moves the whole gradient by 3.5e-3 (fnet.conv1), on seed 6 by
+    # 6.6e-5
+    out["train_step_card_vs_cpu"] = {
+        "craft": train_step_card_vs_cpu(torch, "craft", dev, {"iters": 2},
+                                        batch_seed=6),
+        "neuflow2": train_step_card_vs_cpu(torch, "neuflow2", dev,
+                                           {"iters_s8": 2}, (15, 3)),
+        "streamflow": train_step_card_vs_cpu(torch, "streamflow", dev,
+                                             {"iters": 2}, frames=4)}
+    log(f"[13 train step card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # training at 368x496 (FlowFormer's optimizer of phase 10)
+    th, tw = -(-TRAIN_H // 8), -(-TRAIN_W // 8)
+
+    def pyramid_shapes(q_per_sample):
+        def shapes(b):
+            return [(b * q_per_sample * th * tw, th >> k, tw >> k)
+                    for k in range(4)]
+        return shapes
+
+    depths = {n: d for n, d, _ in VA_SERVE}
+    out["train"] = {}
+    for name, args, batches, depth, frames_, launches, shapes in (
+            ("craft", {"iters": ITERS}, VA_TRAIN_BATCHES["craft"], ITERS, 2,
+             None, pyramid_shapes(1)),
+            ("neuflow2", {}, (8,), depths["neuflow2"], 2,
+             (5 * depths["neuflow2"], depths["neuflow2"]), None),
+            ("streamflow", {}, VA_TRAIN_BATCHES["streamflow"],
+             depths["streamflow"], 4, None, pyramid_shapes(3))):
+        t0 = time.perf_counter()
+        model = ptlflow_tpu_torch.get_model(name, args=args)
+        condition_video_and_attention(torch, name, model)
+        tx = ttrain.make_optimizer(lr=2.5e-4, wdecay=1e-4,
+                                   total_steps=120000, pct_start=0.05,
+                                   grad_clip=1.0)
+        out["train"][name] = train_at_largest_batch(
+            torch, dev, tag, model, tx, batches, VA_TRAIN_STEPS, depth, name,
+            13, level_shapes=shapes, profile_runs=1, frames=frames_,
+            launches=launches)
+        log(f"[13 train] {name}: {time.perf_counter() - t0:.1f} s with its "
+            f"profile")
+        del model, tx
+        torch.cuda.empty_cache()
+
+    # both kernels at videoflow_mof's and streamflow's 4-level pyramid at
+    # 1024x436 (Q = 21,120), L2 flushed per launch
+    flush = flushes(torch, dev)["dirty"]
+    b, h, w = VA_KERNEL_Q
+    g = torch.Generator().manual_seed(13)
+    f1 = torch.randn(b, 256, h, w, generator=g).to(dev)
+    f2 = torch.randn(b, 256, h, w, generator=g).to(dev)
+    levels = corr.build_corr_pyramid(f1, f2, 4)
+    coords = (torch.rand(b, 2, h, w, generator=g).to(dev) * 1.2 - 0.1) \
+        * torch.tensor([w, h], device=dev).view(1, 2, 1, 1)
+    grad = torch.randn(b, 4 * 81, h, w, generator=g).to(dev)
+    del f1, f2
+    label = f"videoflow_mof/streamflow Q={b * h * w}"
+    got = corr.corr_lookup_kernel(levels, coords, 4)
+    err = (got - corr.corr_pyramid_lookup_plain(levels, coords, 4)).abs(
+        ).max().item()
+    if not err <= ATOL_FP32:
+        raise AssertionError(f"{label}: lookup |err| {err}")
+    out["kernels"] = {
+        "corr_lookup": {label: lookup_record(torch, levels, coords, 4, err,
+                                             flush)},
+        "corr_lookup_backward": {label: backward_record(
+            torch, levels, coords, grad, 4, flush, label)}}
+    for kname, recs in out["kernels"].items():
+        rec = recs[label]
+        log(f"[13 kernels] [{tag}] {kname} at {label}, levels "
+            f"{rec['levels']}, r=4, fp32, L2 flushed per launch: "
+            f"{rec['ms']:.4f} ms by CUDA events, "
+            f"{fmt_ms(rec['profiler_ms'])} device time by the profiler; "
+            f"plain {rec['plain_ms']:.4f} ms; library "
+            f"{rec['library_ms']:.4f} ms; bound {rec['bound_ms']:.5f} ms by "
+            f"{rec['bound_by']} ({rec['bound_bytes']} bytes), kernel at "
+            f"{rec['bound_ms'] / rec['ms']:.1%} of it")
+    return out
+
+
 def profile_forward(torch, model, images, label: str, tag: str,
                     event_ms: float, phase: int = 5,
                     kernel_names=None) -> dict:
@@ -2647,7 +3012,8 @@ def profile_forward(torch, model, images, label: str, tag: str,
     share, the top kernels and, for each ``kernel_names`` entry (label:
     substring), the ms and launches of the kernels whose name holds the
     substring (any case).  A first profiled forward absorbs the tracer's
-    start-up and is not read."""
+    start-up and is not read.  A ``kernel_names`` substring may come with
+    a tuple of substrings that exclude a kernel: (substring, excludes)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -2682,7 +3048,9 @@ def profile_forward(torch, model, images, label: str, tag: str,
         log(f"  {ms:9.3f} ms  {count:5d}x  {key[:100]}")
     by_name = {}
     for name, sub in (kernel_names or {}).items():
-        hits = [r for r in rows if sub.lower() in r[2].lower()]
+        sub, excludes = sub if isinstance(sub, tuple) else (sub, ())
+        hits = [r for r in rows if sub.lower() in r[2].lower()
+                and not any(x in r[2].lower() for x in excludes)]
         by_name[name] = [sum(r[0] for r in hits), sum(r[1] for r in hits)]
         log(f"  {name} (kernels named *{sub}*): {by_name[name][0]:.3f} ms in "
             f"{by_name[name][1]} launches ({by_name[name][0] / busy:.1%})")

@@ -1,4 +1,5 @@
 """Model families of the PyTorch port; importing registers them."""
 
-from . import (dpflow, flowformer, flowformerplusplus, gma,  # noqa: F401
-               lcv, memflow, raft, rapidflow, rpknet, sea_raft, skflow)
+from . import (craft, dpflow, flowformer, flowformerplusplus,  # noqa: F401
+               gma, lcv, memflow, neuflow2, raft, rapidflow, rpknet,
+               sea_raft, skflow, streamflow, videoflow)

@@ -63,17 +63,19 @@ class PCBlock4_Deep_nopool_res(nn.Module):
 
 class SKMotionEncoder6_Deep_nopool_res(nn.Module):
     """The lookup's L*(2r+1)^2 channels (324 at L = 4, r = 4) and the flow
-    -> 126 motion channels, with the flow appended last."""
+    -> ``out_dim`` - 2 motion channels (126), with the flow appended last.
+    StreamFlow's encoder is this one with ``out_dim`` half its decoder
+    width."""
 
     def __init__(self, corr_levels: int, corr_radius: int,
-                 k_conv: Sequence[int]):
+                 k_conv: Sequence[int], out_dim: int = 128):
         super().__init__()
         cor_planes = corr_levels * (2 * corr_radius + 1) ** 2
         self.convc1 = PCBlock4_Deep_nopool_res(cor_planes, 256, k_conv)
         self.convc2 = PCBlock4_Deep_nopool_res(256, 192, k_conv)
         self.convf1 = CastConv2d(2, 128, 1, 1, 0)
         self.convf2 = PCBlock4_Deep_nopool_res(128, 64, k_conv)
-        self.conv = PCBlock4_Deep_nopool_res(64 + 192, 128 - 2, k_conv)
+        self.conv = PCBlock4_Deep_nopool_res(64 + 192, out_dim - 2, k_conv)
 
     def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
         cor = self.convc2(F.gelu(self.convc1(corr)))

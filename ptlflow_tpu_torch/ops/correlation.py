@@ -13,12 +13,17 @@ version :func:`corr_pyramid_lookup_plain` for one on the CPU.
 :func:`corr_pyramid_lookup` is the same as a one-shot call, and
 :class:`CorrBlock` the pyramid of two feature maps with its prepared lookup.
 
-The lookup is differentiable with respect to the pyramid, never the coords,
-as RAFT trains it (the JAX package stops the coords' gradient).  On the
-card the gradient is a second hand-written kernel
+The lookup is differentiable with respect to the pyramid and, by default,
+never the coords, as RAFT trains it (RAFT's family stops the coords'
+gradient).  On the card the gradient is a second hand-written kernel
 (``csrc/corr_lookup_backward.cu``) inside a ``torch.autograd.Function``; on
 the CPU autograd differentiates the plain version,
 :func:`corr_pyramid_lookup_backward_plain` is the kernel's plain version.
+A lookup prepared with ``coords_grad=True`` is also differentiable with
+respect to the coords, as the JAX package's XLA lookup is where a model does
+not stop their gradient (NeuFlow v2): on the card
+:func:`lookup_coords_grad` takes that gradient from four launches of the
+forward kernel a level.
 """
 
 from __future__ import annotations
@@ -114,7 +119,8 @@ def _check_coords_grad(coords: torch.Tensor) -> None:
             "the JAX package does)")
 
 
-def make_corr_lookup(pyramid: Sequence[torch.Tensor], radius: int
+def make_corr_lookup(pyramid: Sequence[torch.Tensor], radius: int,
+                     coords_grad: bool = False
                      ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Prepare the lookup of ``pyramid`` once; returns ``lookup(coords)``.
 
@@ -127,16 +133,18 @@ def make_corr_lookup(pyramid: Sequence[torch.Tensor], radius: int
     each call is :func:`corr_pyramid_lookup_plain`, which autograd
     differentiates.  Coords on another device than the pyramid raise:
     neither path stands in for the other.  On either device, coords that
-    require a gradient raise while grad mode is on: the lookup gives no
-    gradient for them.
+    require a gradient raise while grad mode is on, unless ``coords_grad``:
+    then the lookup gives their gradient too (:func:`lookup_coords_grad` on
+    the card, autograd of the plain version on the CPU).
     """
     _check_pyramid(pyramid, radius)
     dev = pyramid[0].device
     if dev.type == "cuda":
-        return _KernelLookup(pyramid, radius)
+        return _KernelLookup(pyramid, radius, coords_grad=coords_grad)
     if dev.type == "cpu":
         def lookup(coords: torch.Tensor) -> torch.Tensor:
-            _check_coords_grad(coords)
+            if not coords_grad:
+                _check_coords_grad(coords)
             return corr_pyramid_lookup_plain(pyramid, coords, radius)
         return lookup
     raise ValueError(f"no lookup for device {dev}")
@@ -277,17 +285,55 @@ def corr_pyramid_lookup_backward_plain(grad_out: torch.Tensor,
     return grads
 
 
+def lookup_coords_grad(lookup: Callable, levels: Sequence[torch.Tensor],
+                       coords: torch.Tensor, grad_out: torch.Tensor,
+                       radius: int) -> torch.Tensor:
+    """The gradient of a lookup with respect to its (B, 2, H1, W1) coords,
+    given the output's gradient ``grad_out``.  ``lookup(levels, coords)``
+    is a one-level lookup: the kernel's launch on the card, the plain
+    version in the tests.
+
+    At level ``l`` the output is bilinear in the coords' fraction
+    c / 2^l - floor(c / 2^l), and both 2x2 stencils share it across the
+    window; so its derivative along x is (L(x0 + 1, y) - L(x0, y)) / 2^l,
+    with L the level's lookup at the integer corner x0 = floor(x / 2^l)
+    (fraction 0: exactly the corner's window) and y as given, and likewise
+    along y.  That is four lookups a level, whose difference weighs the
+    output's gradient channel by channel: the derivative of the JAX
+    package's XLA lookup, whose one-hot weights are linear in the
+    fraction."""
+    n2 = (2 * radius + 1) ** 2
+    g = grad_out.float()
+    out = torch.zeros_like(coords)
+    for i, lvl in enumerate(levels):
+        c = coords / 2 ** i  # exact: a power of two
+        corner = torch.floor(c)
+        gl = g[:, i * n2:(i + 1) * n2]
+        for axis in (0, 1):
+            lo = c.clone()
+            lo[:, axis] = corner[:, axis]
+            hi = lo.clone()
+            hi[:, axis] += 1
+            diff = lookup([lvl], hi).float() - lookup([lvl], lo).float()
+            out[:, axis] += (gl * diff).sum(1) / 2 ** i
+    return out
+
+
 class _LookupFunction(torch.autograd.Function):
     """The prepared lookup on the card as an autograd node: the forward
     launches ``csrc/corr_lookup.cu``, the backward
     ``csrc/corr_lookup_backward.cu``, one gradient per level.  It saves the
-    coords and the levels' shapes, nothing of the pyramid, and gives the
-    coords no gradient (the caller refuses coords that need one)."""
+    coords and the levels' shapes, and nothing of the pyramid unless the
+    lookup was prepared with ``coords_grad``: only then does it give the
+    coords a gradient (:func:`lookup_coords_grad`, which launches the
+    forward kernel on the levels; the caller refuses coords that need one
+    otherwise)."""
 
     @staticmethod
     def forward(ctx, coords, prepared, *levels):
         ctx.shapes = prepared.shapes
         ctx.radius = prepared.radius
+        ctx.prepared = prepared if prepared.coords_grad else None
         ctx.save_for_backward(coords)
         return prepared.launch(coords)
 
@@ -295,9 +341,16 @@ class _LookupFunction(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
         (coords,) = ctx.saved_tensors
-        grads = corr_lookup_backward_kernel(grad_out, coords, ctx.shapes,
-                                            ctx.radius)
-        return (None, None, *grads)
+        grads = [None] * len(ctx.shapes)
+        if any(ctx.needs_input_grad[2:]):
+            grads = corr_lookup_backward_kernel(grad_out, coords, ctx.shapes,
+                                                ctx.radius)
+        coords_grad = None
+        if ctx.needs_input_grad[0]:
+            coords_grad = lookup_coords_grad(
+                ctx.prepared.launch_level, ctx.prepared.levels, coords,
+                grad_out, ctx.radius)
+        return (coords_grad, None, *grads)
 
 
 class _KernelLookup:
@@ -305,12 +358,15 @@ class _KernelLookup:
     library with the same C interface) for a checked pyramid on the card.
     Each call launches on the current stream, raises on a refused launch
     and counts it in ``corr_lookup_kernel.launches``.  Where grad mode is on
-    and a level requires a gradient, the call goes through
-    :class:`_LookupFunction`."""
+    and a level (or, with ``coords_grad``, the coords) requires a gradient,
+    the call goes through :class:`_LookupFunction`."""
 
     def __init__(self, pyramid: Sequence[torch.Tensor], radius: int,
-                 lib: Optional[ctypes.CDLL] = None):
+                 lib: Optional[ctypes.CDLL] = None,
+                 coords_grad: bool = False):
         self.lib = _corr_lookup_lib(lib)
+        self.coords_grad = coords_grad
+        self._level_lookups = {}
         # keeps the contiguous copies alive while the lookup is
         self.levels = [lvl.contiguous() for lvl in pyramid]
         nl = len(self.levels)
@@ -328,11 +384,24 @@ class _KernelLookup:
 
     def __call__(self, coords: torch.Tensor) -> torch.Tensor:
         _check_coords(coords, self.q, self.device)
-        _check_coords_grad(coords)
-        if torch.is_grad_enabled() and any(lvl.requires_grad
-                                           for lvl in self.levels):
+        if not self.coords_grad:
+            _check_coords_grad(coords)
+        if torch.is_grad_enabled() and (
+                any(lvl.requires_grad for lvl in self.levels)
+                or (self.coords_grad and coords.requires_grad)):
             return _LookupFunction.apply(coords, self, *self.levels)
         return self.launch(coords)
+
+    def launch_level(self, levels: Sequence[torch.Tensor],
+                     coords: torch.Tensor) -> torch.Tensor:
+        """One launch on the one level ``levels`` of this pyramid, at coords
+        on that level's grid: :func:`lookup_coords_grad`'s lookup."""
+        (lvl,) = levels
+        key = lvl.data_ptr()
+        if key not in self._level_lookups:
+            self._level_lookups[key] = _KernelLookup([lvl], self.radius,
+                                                     self.lib)
+        return self._level_lookups[key].launch(coords)
 
     def launch(self, coords: torch.Tensor) -> torch.Tensor:
         if torch.cuda.current_device() != self.device.index:
@@ -378,13 +447,16 @@ class CorrBlock:
     (:func:`make_corr_lookup`), both prepared once, here.  Each call is then
     one lookup: one launch of ``csrc/corr_lookup.cu`` for features on the
     card, the plain version for features on the CPU.  The JAX class looks
-    the pyramid up afresh on every call; the numbers are the same."""
+    the pyramid up afresh on every call; the numbers are the same.
+    ``coords_grad`` is :func:`make_corr_lookup`'s."""
 
     def __init__(self, fmap1: torch.Tensor, fmap2: torch.Tensor,
                  num_levels: int = 4, radius: int = 4,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 coords_grad: bool = False):
         self.pyramid = build_corr_pyramid(fmap1, fmap2, num_levels, dtype)
-        self.lookup = make_corr_lookup(self.pyramid, radius)
+        self.lookup = make_corr_lookup(self.pyramid, radius,
+                                       coords_grad=coords_grad)
 
     def __call__(self, coords: torch.Tensor) -> torch.Tensor:
         """(B, L*(2r+1)^2, H1, W1), as :func:`corr_pyramid_lookup`."""

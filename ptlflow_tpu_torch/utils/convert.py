@@ -2,8 +2,9 @@
 
 The inverse of ``Module.from_torch`` in ``ptlflow_tpu/nn/module.py``: nested
 names become dotted ones, convolution weights (``CONV_WEIGHTS``) go from
-HWIO back to OIHW, linear weights from (in, out) back to (out, in), and
-every BatchNorm gets the ``num_batches_tracked`` counter that the JAX tree
+HWIO back to OIHW, linear weights from (in, out) back to (out, in), the
+``LEAF_TRANSPOSES`` back to the reference's axis order, and every
+BatchNorm gets the ``num_batches_tracked`` counter that the JAX tree
 drops.  Takes numpy
 leaves (the caller converts JAX arrays), so nothing here imports JAX.
 
@@ -32,6 +33,12 @@ import torch
 # (ptlflow_tpu/models/rapidflow/next1d.py:56-64).  ``ConvTranspose2d``'s
 # (kh, kw, O, I) takes the same transpose to torch's (I, O, kh, kw).
 CONV_WEIGHTS = ("weight", "weight_h", "weight_v")
+
+# Leaves that the JAX package stores in another axis order, with the
+# transpose back to the reference's: VideoFlow-MOF's initial motion state,
+# (1, 1, 1, 1, 48) there and (1, 1, 48, 1, 1) in the reference
+# (ptlflow_tpu/models/videoflow/videoflow.py:239-251).
+LEAF_TRANSPOSES = {"init_hidden_state": (0, 1, 4, 2, 3)}
 
 # Buffers that the JAX package computes where the reference stores them:
 # GMA's relative positions, LCV-RAFT's identity (ptlflow_tpu/models/lcv/
@@ -96,7 +103,9 @@ def _convert(params: Dict[str, Any], prefix: str,
             out.update(_convert(v, name + ".", embeddings))
             continue
         a = np.asarray(v)
-        if k in CONV_WEIGHTS and a.ndim == 4:  # conv HWIO -> OIHW
+        if k in LEAF_TRANSPOSES:
+            a = np.transpose(a, LEAF_TRANSPOSES[k])
+        elif k in CONV_WEIGHTS and a.ndim == 4:  # conv HWIO -> OIHW
             a = np.transpose(a, (3, 2, 0, 1))
         elif k == "weight" and a.ndim == 2 and name not in embeddings:
             a = a.T  # linear (in, out) -> (out, in)

@@ -11,7 +11,8 @@ mode in the port and refuses a model without one, where the JAX
 model: its bfloat16 coords meet the port's lookup, which takes float32
 coords only (ROADMAP.md, section 3).  Weights are drawn and conditioned as
 ``tests/test_torch_skflow.py`` says (``dpflow``'s as
-``tests/test_torch_rapidflow.py`` says).
+``tests/test_torch_rapidflow.py`` says, ``craft``'s as
+``tests/test_torch_craft.py`` says).
 """
 
 import numpy as np
@@ -30,7 +31,7 @@ from ptlflow_tpu_torch.scripts import model_benchmark as tbench
 from ptlflow_tpu_torch.scripts.validate import cast_to_bf16
 from ptlflow_tpu_torch.utils import flow_io, image_io
 from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
-from tests import test_torch_rapidflow
+from tests import test_torch_craft, test_torch_rapidflow
 from tests.test_torch_recurrent_pyramid_train import DP_TRAIN
 from tests.test_torch_skflow import H, ITERS, build
 
@@ -103,6 +104,32 @@ def test_validate_bf16_cast_of_dpflow_matches_jax():
     fp32 = np.asarray(forward(jmodel.params, x)["flows"])
     assert cast_to_bf16(tmodel, "dpflow")
     assert tmodel.fnet.up_gru.weight.dtype == torch.bfloat16
+    got = tmodel({"images": torch.from_numpy(images)})["flows"]
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-3)
+    assert np.abs(got.numpy() - fp32).max() > 5e-3
+
+
+def test_validate_bf16_cast_of_craft_matches_jax():
+    """``validate --bf16`` of ``craft`` (on the allow-list) at 64x96, 2
+    iterations: the weights cast to bf16, the sliding positional biases
+    and input-skip coefficients among them, each layer computing in the
+    fp32 images' dtype; the flow within 5e-3 px of the JAX package's
+    forward with ``cast_params(params, bfloat16)``, and off the fp32
+    forward by more than that (the cast took place)."""
+    jmodel, tmodel, _ = test_torch_craft.build(162, iters=2)
+    images = np.random.RandomState(162).rand(1, 2, 3, 64, 96).astype(
+        np.float32)
+    x = {"images": jnp.asarray(images)}
+    forward = jax.jit(lambda p, x: jmodel.forward(p, x))
+    want = np.asarray(forward(jnn.cast_params(jmodel.params, jnp.bfloat16),
+                              x)["flows"])
+    fp32 = np.asarray(forward(jmodel.params, x)["flows"])
+    assert cast_to_bf16(tmodel, "craft")
+    pos = tmodel.corr_fn.vispos_encoder.pos_coder.biases
+    assert pos.dtype == torch.bfloat16
+    assert tmodel.update_block.aggregator.input_skip_coeff.dtype == \
+        torch.bfloat16
     got = tmodel({"images": torch.from_numpy(images)})["flows"]
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, atol=5e-3)

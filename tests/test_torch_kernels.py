@@ -255,3 +255,58 @@ def test_flowformer_shaped_lookup_on_card(b, h, w):
     assert corr.corr_lookup_kernel.launches == fwd + 1
     assert corr.corr_lookup_backward_kernel.launches == bwd + 1
     torch.testing.assert_close(auto[0], first[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("radius", [1, 4])
+def test_coords_gradient_on_cpu_is_autograd_of_plain(radius):
+    """``make_corr_lookup(..., coords_grad=True)`` on the CPU: autograd of
+    the plain version gives the coords a gradient, and
+    :func:`lookup_coords_grad` (four one-level lookups a level, the card's
+    way) gives the same within 1e-5 of its largest element; without
+    ``coords_grad`` coords that need a gradient raise."""
+    pyr, coords = _inputs(50 + radius, 2, 5, 7, 6, 9, levels=3)
+    coords.requires_grad_()
+    out = corr.make_corr_lookup(pyr, radius, coords_grad=True)(coords)
+    grad = torch.randn(out.shape,
+                       generator=torch.Generator().manual_seed(radius))
+    (want,) = torch.autograd.grad(out, coords, grad)
+    got = corr.lookup_coords_grad(
+        lambda lv, c: corr.corr_pyramid_lookup_plain(lv, c, radius), pyr,
+        coords.detach(), grad, radius)
+    assert want.abs().max() > 0
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+    with pytest.raises(ValueError, match="detach the coords"):
+        corr.make_corr_lookup(pyr, radius)(coords)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [1, 4])
+def test_coords_gradient_on_card_matches_plain(radius):
+    """On the card, a lookup prepared with ``coords_grad`` gives the coords
+    and the levels the gradients of autograd through the plain version on
+    the CPU (1e-5 of the largest), launching the backward kernel once and
+    the forward kernel once plus four times a level."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pyr, coords = _inputs(60 + radius, 2, 5, 7, 6, 9, levels=3)
+    grad = torch.randn(2, 3 * (2 * radius + 1) ** 2, 5, 7,
+                       generator=torch.Generator().manual_seed(radius))
+    want = []
+    for dev in ("cpu", "cuda"):
+        levels = [p.to(dev).requires_grad_() for p in pyr]
+        c = coords.to(dev).requires_grad_()
+        fwd = corr.corr_lookup_kernel.launches
+        bwd = corr.corr_lookup_backward_kernel.launches
+        out = corr.make_corr_lookup(levels, radius, coords_grad=True)(c)
+        got = [g.cpu() for g in torch.autograd.grad(out, [c] + levels,
+                                                    grad.to(dev))]
+        if dev == "cpu":
+            want = got
+            continue
+        assert corr.corr_lookup_kernel.launches == fwd + 1 + 4 * 3
+        assert corr.corr_lookup_backward_kernel.launches == bwd + 1
+        for g, w in zip(got, want):
+            torch.testing.assert_close(
+                g, w, rtol=0, atol=1e-5 * max(w.abs().max().item(), 1.0))

@@ -72,20 +72,25 @@ def test_port_sources_import_no_jax():
     assert not offenders
 
 
-PORTED = ["dpflow", "flowformer", "flowformer_pp", "gma", "lcv_raft",
-          "lcv_raft_small", "memflow", "memflow_t", "raft", "raft_small",
-          "rapidflow", "rapidflow_it1", "rapidflow_it2", "rapidflow_it3",
-          "rapidflow_it6", "rpknet", "sea_raft", "sea_raft_l", "sea_raft_m",
-          "sea_raft_s", "skflow"]
+PORTED = ["craft", "dpflow", "flowformer", "flowformer_pp", "gma",
+          "lcv_raft", "lcv_raft_small", "memflow", "memflow_t", "neuflow2",
+          "raft", "raft_small", "rapidflow", "rapidflow_it1",
+          "rapidflow_it2", "rapidflow_it3", "rapidflow_it6", "rpknet",
+          "sea_raft", "sea_raft_l", "sea_raft_m", "sea_raft_s", "skflow",
+          "streamflow", "videoflow_bof", "videoflow_mof"]
 
 
 def test_registry():
     """The ported names; the trainable ones are the JAX package's
-    trainable names among them (``flowformer_pp`` is not trainable)."""
+    trainable names among them (``flowformer_pp`` and the VideoFlows are
+    not trainable)."""
     assert ptlflow_tpu_torch.get_model_names() == PORTED
     assert ptlflow_tpu_torch.get_trainable_model_names() == [
         n for n in PORTED if n in ptlflow_tpu.get_trainable_model_names()]
-    assert "flowformer_pp" not in ptlflow_tpu_torch.get_trainable_model_names()
+    for name in ("flowformer_pp", "videoflow_bof", "videoflow_mof"):
+        assert name not in ptlflow_tpu_torch.get_trainable_model_names()
+    for name in ("craft", "neuflow2", "streamflow"):
+        assert name in ptlflow_tpu_torch.get_trainable_model_names()
     assert ptlflow_tpu_torch.get_ptlflow_trained_model_names() == [
         "dpflow", "gma", "raft", "raft_small", "rapidflow", "rapidflow_it1",
         "rapidflow_it2", "rapidflow_it3", "rapidflow_it6", "rpknet"]
@@ -189,12 +194,17 @@ def test_checkpoint_round_trip(tmp_path):
     ("memflow", "network."), ("lcv_raft", "corr_block.eye"),
     ("rapidflow", "fnet.rec_stage.blocks.0.conv_dw.weight_h"),
     ("rpknet", "fnet.rec_stage.blocks.0.layer_scale_1"),
-    ("dpflow", "fnet.up_gru.weight")])
+    ("dpflow", "fnet.up_gru.weight"),
+    ("craft", "corr_fn.setrans.key.weight"),
+    ("videoflow_mof", "update_block.encoder.init_hidden_state"),
+    ("streamflow", "update_block.transformer_block.transformer_block.")])
 def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     """A Lightning-style .ckpt in the reference's layout, converted from a
     JAX tree (MemFlow nests its net under ``network.``, LCV-RAFT stores
     ``corr_block.eye``, RAPIDFlow its NeXt1D factors, RPKNet its layer
-    scales, DPFlow the transposed convolution ``up_gru``), loads into
+    scales, DPFlow the transposed convolution ``up_gru``, CRAFT its tied
+    query under ``key.`` too, VideoFlow-MOF its initial motion state as
+    (1, 1, 48, 1, 1), StreamFlow its temporal transformer), loads into
     ``get_model`` strictly, every tensor equal."""
     import jax
 
