@@ -120,7 +120,28 @@ Phases, each of which must pass, else the script exits non-zero:
     ``videoflow_mof``'s and ``streamflow``'s pyramid (Q = 21,120; phase 2
     checks them there, at ``neuflow2``'s 1/16 level and at
     ``streamflow``'s training pyramid, and the coords' gradient at
-    ``neuflow2``'s training levels).
+    ``neuflow2``'s training levels);
+14. MEMFOF, LLA-Flow (+RAFT), CSFlow, SplatFlow, ReCoVEr (mn, rn, cx) and
+    Flow-Anything, the volume-pooled and re-correlated pyramids, the
+    two-pyramid lookup, the splat and the new context backbones: serve 3
+    consecutive windows of one sequence through each (``memfof`` 3 frames
+    at 1080x1920 and 436x1024, 16 lookups; ``llaflow``, ``llaflow_raft``
+    32 and ``csflow`` 64, pairs warm-started from the last; ``splatflow``
+    3 frames at 375x1242, 64; ReCoVEr and Flow-Anything 4), time and
+    profile each fp32 forward with its peak memory (LLA-Flow's GEMMs,
+    ReCoVEr-CX's depthwise convolutions) and the ``validate --bf16`` casts
+    of ``memfof`` and ``csflow``; the flows of every name at 256x320 on
+    the card against the CPU; both kernels against their plain versions
+    and timed on MEMFOF's 1080p levels and CSFlow's strip pyramid;
+    ``softsplat_average`` against the CPU at SplatFlow's 1/8 KITTI shape;
+    one train step at 128x160 of ``csflow``, ``llaflow``, ``llaflow_raft``,
+    ``memfof``, ``recover_mn`` and ``recover_cx`` on both; and train
+    ``csflow`` and ``llaflow`` (12 iterations) and ``memfof`` at 368x496 at
+    the first batch of (10, 8, 6, 4) that fits.
+
+A profiler reading under its kernel's bound, or whose kernel records do not
+match the launches that the wrappers counted, is printed as invalid and
+recorded as null with its reason (``invalid_profiler_readings``).
 
 ``--against`` builds other versions of ``csrc/corr_lookup.cu`` (the same C
 interface) and times each in turns with the repo's kernel on the same
@@ -129,9 +150,9 @@ inputs (other, repo, repo, other), in the same run.
 The second-to-last line is ``{"kernels": [...]}``, the line before it the
 card's name and power limit (after ``{"harness": ...}``,
 ``{"train_cli": ...}``, ``{"flowformer": ...}``, ``{"sk_family": ...}``,
-``{"recurrent_pyramid": ...}`` and ``{"video_and_attention": ...}``,
-phases 8-13's numbers), and the last line ``{"ok": true, "device":
-{...}}``.  With no card it prints no result
+``{"recurrent_pyramid": ...}``, ``{"video_and_attention": ...}`` and
+``{"volume_and_backbone": ...}``, phases 8-14's numbers), and the last
+line ``{"ok": true, "device": {...}}``.  With no card it prints no result
 and exits 2.
 """
 
@@ -242,6 +263,45 @@ VA_TRAIN_STEPS = 4
 # the lookups of videoflow_mof (5 frames) and streamflow (4) at 1024x436:
 # Q = 3 x 55 x 128 on the 4 levels 55x128 ... 6x16
 VA_KERNEL_Q = (3, 55, 128)
+# Phase 14: MEMFOF, LLA-Flow (+RAFT), CSFlow, SplatFlow, ReCoVEr (mn, rn,
+# cx) and Flow-Anything at their registered depths: (model, lookup launches
+# a forward, frames a window, warm-started from the last, (H, W)).  MEMFOF
+# at Spring's 1080p (its own use) and at H x W, SplatFlow at KITTI 2015's
+# size (its one checkpoint is KITTI's)
+VB_NAMES = ("memfof", "llaflow", "llaflow_raft", "csflow", "splatflow",
+            "recover_mn", "recover_rn", "recover_cx", "flow_anything")
+VB_SERVE = (("memfof", 16, 3, False, (SPRING_H, SPRING_W)),
+            ("memfof", 16, 3, False, (H, W)),
+            ("llaflow", 32, 2, True, (H, W)),
+            ("llaflow_raft", 32, 2, True, (H, W)),
+            ("csflow", 64, 2, True, (H, W)),
+            ("splatflow", 64, 3, False, (KITTI_H, KITTI_W)),
+            ("recover_mn", 4, 2, False, (H, W)),
+            ("recover_rn", 4, 2, False, (H, W)),
+            ("recover_cx", 4, 2, False, (H, W)),
+            ("flow_anything", 4, 2, False, (H, W)))
+# one train step card against CPU at 128x160, 2 iterations: (model, the
+# forward kernel's and the backward's launches, the batch seed).  Seed 5
+# (phase 4's) meets a ReLU input within rounding of 0: the CPU with its
+# input one rounding off moves the whole gradient of llaflow, llaflow_raft
+# and memfof by 1.1e-3 to 2.5e-3; on seed 6 by 1.0e-4 to 3.8e-4.  MEMFOF's
+# step (four ResNet34 trunks, 60 BatchNorms on batch statistics at 1/16 of
+# 128x160) parts card from CPU by 5.3e-4 to 1.6e-3 of the whole gradient's
+# norm on seeds 6-15, the same bits on two card runs; seed 15 is one of the
+# two at 5.3e-4
+VB_STEP_CHECK = (("csflow", (4, 4), 6), ("llaflow", (2, 2), 6),
+                 ("llaflow_raft", (2, 2), 6), ("memfof", (4, 4), 15),
+                 ("recover_mn", (2, 2), 6), ("recover_cx", (2, 2), 6))
+# timed training at 368x496 at the first batch that fits: csflow and
+# llaflow at 12 iterations (raft-train1-chairs.yaml's RAFT), memfof at its 8
+VB_TRAIN = (("csflow", {"iters": ITERS}, 2 * ITERS),
+            ("llaflow", {"iters": ITERS}, ITERS),
+            ("memfof", {}, 16))
+VB_TRAIN_BATCHES = (10, 8, 6, 4)
+VB_TRAIN_STEPS = 4
+# softsplat_average, card against CPU: float32 sums of a few terms whose
+# atomics add in no fixed order on the card
+ATOL_SPLAT = 1e-5
 # DeviceCompose, card against CPU on one Chairs sample, the same draws and
 # one noise field: float32 sums of the same few terms in another order
 ATOL_AUG_IMAGES, ATOL_AUG_FLOWS_PX = 1e-5, 1e-4
@@ -281,29 +341,97 @@ def timed_ms(torch, fn, reps: int, flush=None) -> float:
     return total / reps
 
 
-def profiled_ms(torch, fn, reps: int, flush, name: str = "corr_lookup"):
+# Profiler readings that no card could give (under the kernel's bound) or
+# whose kernel records do not match the launches: each is printed as
+# invalid and kept here with its reason, and its number is null
+INVALID_READINGS = []
+
+
+def profiled_ms(torch, fn, reps: int, flush, name: str = "corr_lookup",
+                bound_ms=None, label: str = ""):
     """Mean device time per launch of the kernels whose name holds ``name``
     over ``reps`` calls of ``fn``, L2 flushed before each, by the profiler
     (torch.profiler), or None where it recorded no device time.  A first
-    profiled run absorbs the tracer's start-up and is not read."""
+    profiled run absorbs the tracer's start-up and is not read.
+
+    The time is the sum of the matching kernels' own records (each
+    launch's start to end on the card) over their number, which must equal
+    the launches that the wrappers counted in the profiled run; a run that
+    lost records is read again, up to 3 times.  The profiler loses records
+    now and then late in a long process, and the records left can then be
+    short: the backward once read 0.0866 ms at RAFT's train shape, and
+    0.0618 ms at FlowFormer's on 17 records of 20 launches, both under
+    the kernel's bound.  A reading whose records do not match the launches,
+    or under ``bound_ms``, which no card can give, is printed as invalid,
+    kept in INVALID_READINGS with its reason, and gives None.
+    ``key_averages()`` is read only to compare (``profiler_readings``)."""
+    for attempt in range(3):
+        readings = profiler_readings(torch, fn, reps, flush, name)
+        if readings["records"] == readings["launches"]:
+            break
+    ms, reason = readings["records_ms"], None
+    if readings["records"] != readings["launches"]:
+        reason = (f"{readings['records']} kernel records for "
+                  f"{readings['launches']} launches, {attempt + 1} times")
+    elif ms is not None and bound_ms is not None and ms < bound_ms:
+        reason = f"{ms:.5f} ms is under the {bound_ms:.5f} ms bound"
+    if reason is not None:
+        log(f"[profiler] {label or name}: reading invalid, recorded as null: "
+            f"{reason}")
+        INVALID_READINGS.append({"label": label or name, "kernel": name,
+                                 "reason": reason, "readings": readings})
+        return None
+    return ms
+
+
+def profiler_readings(torch, fn, reps: int, flush, name: str) -> dict:
+    """One profiled run of ``reps`` calls of ``fn`` (after a discarded one):
+    the launches of the kernel ``name`` ("corr_lookup" or
+    "corr_lookup_backward") that its wrapper counted, the card's records of
+    that kernel and their mean duration, and ``key_averages()``'s self-time
+    mean and count for the kernels whose name holds ``name`` (the reading
+    ``profiled_ms`` took before it read the records)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from ptlflow_tpu_torch.ops import correlation as corr
+
+    backward = name == "corr_lookup_backward"
+    wrapper = (corr.corr_lookup_backward_kernel if backward
+               else corr.corr_lookup_kernel)
+
+    def ours(event_name: str) -> bool:
+        # the forward kernel's name is a prefix of the backward's
+        return name in event_name and (backward
+                                       or "backward" not in event_name)
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for _ in range(2):
         torch.cuda.synchronize()
+        before = wrapper.launches
         with profile(activities=acts) as prof:
             for _ in range(reps):
                 flush()
                 fn()
             torch.cuda.synchronize()
-    total, count = 0.0, 0
+        launches = wrapper.launches - before
+    durations = [e.time_range.elapsed_us() for e in prof.events()
+                 if ours(e.name)
+                 and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    self_total, self_count = 0.0, 0
     for e in prof.key_averages():
         if name in e.key and str(getattr(e, "device_type", "")).endswith(
                 "CUDA"):
-            total += (getattr(e, "self_device_time_total", None)
-                      or getattr(e, "self_cuda_time_total", 0))
-            count += e.count
-    return total / count / 1e3 if count and total > 0 else None
+            self_total += (getattr(e, "self_device_time_total", None)
+                           or getattr(e, "self_cuda_time_total", 0))
+            self_count += e.count
+    return {"launches": launches, "records": len(durations),
+            "records_ms": (sum(durations) / len(durations) / 1e3
+                           if durations and sum(durations) > 0 else None),
+            "records_min_ms": min(durations) / 1e3 if durations else None,
+            "records_max_ms": max(durations) / 1e3 if durations else None,
+            "self_ms": (self_total / self_count / 1e3
+                        if self_count and self_total > 0 else None),
+            "self_count": self_count}
 
 
 def flushes(torch, dev) -> dict:
@@ -463,12 +591,13 @@ def damp_flow_head(model, factor: float = 0.03) -> None:
 def set_layer_scales(torch, model, seed: int) -> None:
     """Every layer scale ``gamma`` (ConvNeXt's, 1e-6 at init, and GMA's
     aggregator's, 0 at init: the blocks they scale add next to nothing
-    there) to seeded values in [0.1, 1], so that a check sees those
-    blocks."""
+    there; LLA-Flow's and MEMFOF's blends, 0 at init) and torchvision
+    ConvNeXt's ``layer_scale`` (1e-6 at init, ReCoVEr-CX) to seeded values
+    in [0.1, 1], so that a check sees those blocks."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.rsplit(".", 1)[-1] == "gamma":
+            if name.rsplit(".", 1)[-1] in ("gamma", "layer_scale"):
                 p.copy_(0.1 + 0.9 * torch.rand(p.shape, generator=gen))
 
 
@@ -511,12 +640,13 @@ def calibrate_norms(torch, model, images) -> None:
     SEA-RAFT's flows then reach ~1000 px at 64x96."""
     norms = [m for m in model.modules()
              if isinstance(m, torch.nn.BatchNorm2d)]
+    saved = [m.momentum for m in norms]  # 0.1, MobileNetV3's 0.01
     for m in norms:
         m.momentum = 1.0
     with torch.no_grad():
         model({"images": images}, training=True)
-    for m in norms:
-        m.momentum = 0.1
+    for m, momentum in zip(norms, saved):
+        m.momentum = momentum
 
 
 def flow_conv(model):
@@ -634,6 +764,56 @@ def condition_video_and_attention(torch, name: str, model) -> None:
                     p.copy_(base + 0.1 * torch.randn(p.shape, generator=gen))
 
 
+def flow_heads(model):
+    """(convolution, output channels) of the flow steps a model serves:
+    MEMFOF's flow head gives both directions' (2<-1: 0-1, 2->3: 6-7),
+    SplatFlow's two GRU branches have a flow head each, the others as
+    ``flow_conv``."""
+    if hasattr(model, "update") and hasattr(model.update, "flow_head_sp"):
+        return [(model.update.flow_head.conv2, [0, 1]),
+                (model.update.flow_head_sp.conv2, [0, 1])]
+    if type(model).__name__ == "memfof":
+        return [(model.flow_head[2], [0, 1, 6, 7])]
+    return [(flow_conv(model), [0, 1])]
+
+
+def condition_volume_and_backbone(torch, name: str, model, images) -> None:
+    """Phase 14's models, conditioned to steps of trained size with their
+    zero-init parameters drawn, as their CPU tests do.  MEMFOF, ReCoVEr and
+    Flow-Anything as SEA-RAFT (seeded layer scales, ConvNeXt's
+    ``layer_scale`` and the aggregator's ``gamma`` among them; the flow
+    head's flow channels damped by 0.01, its info channels by 0.1, each
+    ConvNeXt ``final`` conv by 0.1; the norms calibrated on ``images``).
+    LLA-Flow, CSFlow and SplatFlow as LCV-RAFT (32 iterations): the flow
+    heads damped by 0.01, seeded norms and blends (``gamma``); CSFlow's
+    second-frame strip BatchNorms by 1e-3 (random strips sum to ~1e3 px
+    initial flows)."""
+    set_layer_scales(torch, model, 14)
+    with torch.no_grad():
+        if name == "memfof" or name.startswith(("recover", "flow_any")):
+            head, flow = flow_heads(model)[0]
+            info = [c for c in range(head.out_channels) if c not in flow]
+            for channels, factor in ((flow, 0.01), (info, 0.1)):
+                head.weight[channels] *= factor
+                head.bias[channels] *= factor
+            for blk in model.update_block.refine:
+                blk.final.weight.mul_(0.1)
+        else:
+            for conv, _ in flow_heads(model):
+                conv.weight.mul_(0.01)
+                conv.bias.mul_(0.01)
+    if name == "memfof" or name.startswith(("recover", "flow_any")):
+        calibrate_norms(torch, model, images)
+        return
+    randomise_norms(torch, model, 14)
+    if name == "csflow":
+        with torch.no_grad():
+            for blk in (model.strip_corr_block_v2.conv2_1,
+                        model.strip_corr_block_v2.conv2_2):
+                blk.bn.weight.mul_(1e-3)
+                blk.bn.bias.mul_(1e-3)
+
+
 def parity_weights(torch, name: str, model, images) -> None:
     """Random weights conditioned to steps of trained size, so that two
     correct runs agree (random RAFT-family weights are chaotic: fp32
@@ -648,9 +828,14 @@ def parity_weights(torch, name: str, model, images) -> None:
     ``condition_super_kernel``, seeded norms and layer scales (the memory
     readout's ``gamma`` among them).  LCV-RAFT: RAFT's flow head damped by
     0.01 (32 iterations), seeded norms and ``learned_metric``.  CRAFT,
-    NeuFlow v2, VideoFlow, StreamFlow: ``condition_video_and_attention``."""
+    NeuFlow v2, VideoFlow, StreamFlow: ``condition_video_and_attention``.
+    MEMFOF, LLA-Flow, CSFlow, SplatFlow, ReCoVEr, Flow-Anything:
+    ``condition_volume_and_backbone``."""
     if name.startswith("flowformer"):
         condition_flowformer(torch, model)
+        return
+    if name in VB_NAMES:
+        condition_volume_and_backbone(torch, name, model, images)
         return
     if name in {n for n, _, _ in VA_SERVE}:
         condition_video_and_attention(torch, name, model)
@@ -694,12 +879,18 @@ def parity_weights(torch, name: str, model, images) -> None:
 
 
 def damp_to_served_size(torch, name: str, model, images) -> None:
-    """Scale the flow head's two flow channels until ``model``'s mean
-    |flow| on ``images`` is at most SERVED_FLOW_PX: conditioned by
-    ``parity_weights`` alone, SEA-RAFT still gives 60-250 px at 1024x436.
-    Each round aims at half the limit; the flow is near linear in the
-    scale, so one or two rounds do."""
-    head = flow_conv(model)
+    """Scale the flow head's flow channels (``flow_heads``), and CSFlow's
+    strip initialisation (its second-frame strip BatchNorms: the strips'
+    sums are linear in them), until ``model``'s mean |flow| on ``images``
+    is at most SERVED_FLOW_PX: conditioned by ``parity_weights`` alone,
+    SEA-RAFT still gives 60-250 px at 1024x436.  Each round aims at half
+    the limit; the flow is near linear in the scale, so one or two rounds
+    do."""
+    heads = flow_heads(model)
+    if hasattr(model, "strip_corr_block_v2"):
+        blk = model.strip_corr_block_v2
+        heads += [(blk.conv2_1.bn, slice(None)), (blk.conv2_2.bn,
+                                                   slice(None))]
     mags = []
     for _ in range(5):
         with torch.no_grad():
@@ -711,8 +902,9 @@ def damp_to_served_size(torch, name: str, model, images) -> None:
                     f"calibration pair {' -> '.join(mags)} px")
                 return
             scale = 0.5 * SERVED_FLOW_PX / mag
-            head.weight[:2].mul_(scale)
-            head.bias[:2].mul_(scale)
+            for head, channels in heads:
+                head.weight[channels] *= scale
+                head.bias[channels] *= scale
     raise AssertionError(f"{name}: mean |flow| {mag} px after 5 rounds")
 
 
@@ -1223,18 +1415,25 @@ def main(argv=None) -> int:
     flush = sweeps["dirty"]
     reps = 50
     lookup = corr.make_corr_lookup(pyr, radius)
+    bound = lookup_bound(torch, pyr, coords, radius)
+    bound_ms, bound_by = bound["bound_ms"], bound["bound_by"]
+    bf16_pyr, bf16_coords = main_inputs[torch.bfloat16]
+    bf16_bound = lookup_bound(torch, bf16_pyr, bf16_coords, radius)
     kernel_ms = timed_ms(torch, lambda: lookup(coords), reps, flush)
     clean_ms = timed_ms(torch, lambda: lookup(coords), reps, sweeps["clean"])
-    profiler_ms = profiled_ms(torch, lambda: lookup(coords), reps, flush)
+    profiler_ms = profiled_ms(torch, lambda: lookup(coords), reps, flush,
+                              bound_ms=bound_ms, label="raft shape, dirty")
     clean_profiler_ms = profiled_ms(torch, lambda: lookup(coords), reps,
-                                    sweeps["clean"])
+                                    sweeps["clean"], bound_ms=bound_ms,
+                                    label="raft shape, clean")
     plain_ms = timed_ms(torch, lambda: corr.corr_pyramid_lookup_plain(
         pyr, coords, radius), reps, flush)
-    bf16_pyr, bf16_coords = main_inputs[torch.bfloat16]
     bf16_lookup = corr.make_corr_lookup(bf16_pyr, radius)
     bf16_ms = timed_ms(torch, lambda: bf16_lookup(bf16_coords), reps, flush)
     bf16_profiler_ms = profiled_ms(torch, lambda: bf16_lookup(bf16_coords),
-                                   reps, flush)
+                                   reps, flush,
+                                   bound_ms=bf16_bound["bound_ms"],
+                                   label="raft shape, bf16")
 
     lib_out = grid_sample_lookup(torch, pyr, coords, radius)
     lib_err = (lib_out - lookup(coords)).abs().max().item()
@@ -1244,8 +1443,6 @@ def main(argv=None) -> int:
     warm_ms = timed_ms(torch, lambda: [lookup(coords) for _ in range(20)],
                        5) / 20
 
-    bound = lookup_bound(torch, pyr, coords, radius)
-    bound_ms, bound_by = bound["bound_ms"], bound["bound_by"]
     # what the sweep itself costs a call: a plain copy that reads and
     # writes as many bytes as the bound counts, after each sweep
     src = torch.empty(bound["bytes"] // 2, dtype=torch.uint8, device=dev)
@@ -1257,7 +1454,6 @@ def main(argv=None) -> int:
     floor_ms = {k: timed_ms(torch, tiny.zero_, reps, f)
                 for k, f in sweeps.items()}
     del src, dst
-    bf16_bound = lookup_bound(torch, bf16_pyr, bf16_coords, radius)
     q = coords.shape[0] * coords.shape[2] * coords.shape[3]
     shapes = [tuple(p.shape[1:]) for p in pyr]
     log(f"[5 lookup] [{tag}] Q={q}, levels {shapes}, r={radius}, L2 flushed "
@@ -1438,9 +1634,25 @@ def main(argv=None) -> int:
         return corr.corr_lookup_backward_kernel(grad_t, coords_t, shapes_t, 4)
 
     bwd_reps = 20
+    bb = backward_bound(torch, grad_t, coords_t, shapes_t, 4)
     bwd_ms = timed_ms(torch, bwd, bwd_reps, flush)
     bwd_profiler_ms = profiled_ms(torch, bwd, bwd_reps, flush,
-                                  name="corr_lookup_backward")
+                                  name="corr_lookup_backward",
+                                  bound_ms=bb["bound_ms"],
+                                  label="backward, raft train shape")
+    # the profiler's key_averages() self time, which once read 0.0866 ms
+    # here under the 0.1393 ms bound, against the kernel's own records
+    bwd_readings = profiler_readings(torch, bwd, bwd_reps, flush,
+                                     "corr_lookup_backward")
+    log(f"[7 profiler] [{tag}] backward at raft's train shape, "
+        f"{bwd_readings['launches']} launches counted: "
+        f"{bwd_readings['records']} kernel records, mean "
+        f"{fmt_ms(bwd_readings['records_ms'])} (min "
+        f"{fmt_ms(bwd_readings['records_min_ms'])}, max "
+        f"{fmt_ms(bwd_readings['records_max_ms'])}); key_averages() self "
+        f"time {fmt_ms(bwd_readings['self_ms'])} over "
+        f"{bwd_readings['self_count']} events; bound {bb['bound_ms']:.5f} "
+        f"ms")
     bwd_plain_ms = timed_ms(
         torch, lambda: corr.corr_pyramid_lookup_backward_plain(
             grad_t, coords_t, shapes_t, 4), 3, flush)
@@ -1452,7 +1664,6 @@ def main(argv=None) -> int:
     bwd_library_ms = timed_ms(torch, lambda: torch.autograd.grad(
         gs_out, levels, grad_t, retain_graph=True), 5, flush)
     del gs_out, levels
-    bb = backward_bound(torch, grad_t, coords_t, shapes_t, 4)
     # autograd's sums of the 12 dense per-iteration level gradients: one
     # sum of every level, by events, times 11
     parts = [(torch.empty((coords_t.shape[0] * th * tw, h, w_), device=dev),
@@ -1562,6 +1773,18 @@ def main(argv=None) -> int:
     for name, path in va_train_paths.items():
         launches[path] = sum(va["train"][name]["lookup"])
 
+    # ---------------------------------------------------------------- 14
+    t14 = time.perf_counter()
+    vb = volume_and_backbone_phase(torch, dev, tag)
+    log(f"[14] {time.perf_counter() - t14:.1f} s")
+    launches.update(vb["launches"])
+    vb_train_paths = {
+        name: (f"{name} train, {VB_TRAIN_STEPS} steps at {TRAIN_W}x"
+               f"{TRAIN_H}, batch {rec['batch']}")
+        for name, rec in vb["train"].items()}
+    for name, path in vb_train_paths.items():
+        launches[path] = sum(vb["train"][name]["lookup"])
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -1596,6 +1819,9 @@ def main(argv=None) -> int:
         "flowformer_shape": ff["kernels"]["corr_lookup"],
         "recurrent_pyramid_shapes": rp["kernels"]["corr_lookup"],
         "video_and_attention_shapes": va["kernels"]["corr_lookup"],
+        "volume_and_backbone_shapes": vb["kernels"]["corr_lookup"],
+        "invalid_profiler_readings": [
+            r for r in INVALID_READINGS if r["kernel"] == "corr_lookup"],
     }, {
         "name": "corr_lookup_backward",
         "route": "cuda",
@@ -1620,7 +1846,12 @@ def main(argv=None) -> int:
             **{f"{name} train step at 128x160, 2 steps": check["launches"][1]
                for name, check in va["train_step_card_vs_cpu"].items()},
             **{path: sum(va["train"][name]["lookup_backward"])
-               for name, path in va_train_paths.items()}),
+               for name, path in va_train_paths.items()},
+            **{f"{name} train step at 128x160, 2 iterations":
+               check["launches"][1]
+               for name, check in vb["train_step_card_vs_cpu"].items()},
+            **{path: sum(vb["train"][name]["lookup_backward"])
+               for name, path in vb_train_paths.items()}),
         "max_abs_err": bwd_err,
         "max_abs_grad": bwd_gmax,
         "ms": bwd_ms,
@@ -1635,6 +1866,12 @@ def main(argv=None) -> int:
         "recurrent_pyramid_shapes": rp["kernels"]["corr_lookup_backward"],
         "video_and_attention_shapes":
             va["kernels"]["corr_lookup_backward"],
+        "volume_and_backbone_shapes":
+            vb["kernels"]["corr_lookup_backward"],
+        "profiler_readings_raft_train_shape": bwd_readings,
+        "invalid_profiler_readings": [
+            r for r in INVALID_READINGS
+            if r["kernel"] == "corr_lookup_backward"],
     }]
     if against:
         kernels[0]["against"] = against
@@ -1652,6 +1889,9 @@ def main(argv=None) -> int:
                                           if k != "kernels"},
                     "card": tag}))
     log(json.dumps({"video_and_attention": {k: v for k, v in va.items()
+                                            if k != "kernels"},
+                    "card": tag}))
+    log(json.dumps({"volume_and_backbone": {k: v for k, v in vb.items()
                                             if k != "kernels"},
                     "card": tag}))
     log(tag)
@@ -2305,12 +2545,16 @@ def lookup_record(torch, pyr, coords, radius: int, err, flush) -> dict:
 
     lookup = corr.make_corr_lookup(pyr, radius)
     bound = lookup_bound(torch, pyr, coords, radius)
-    return {"q": coords.shape[0] * coords.shape[2] * coords.shape[3],
+    q = coords.shape[0] * coords.shape[2] * coords.shape[3]
+    return {"q": q,
             "levels": [tuple(p.shape[1:]) for p in pyr],
             "max_abs_err": err,
             "ms": timed_ms(torch, lambda: lookup(coords), 50, flush),
-            "profiler_ms": profiled_ms(torch, lambda: lookup(coords), 50,
-                                       flush),
+            "profiler_ms": profiled_ms(
+                torch, lambda: lookup(coords), 50, flush,
+                bound_ms=bound["bound_ms"],
+                label=f"lookup Q={q}, levels "
+                      f"{[tuple(p.shape[1:]) for p in pyr]}"),
             "plain_ms": timed_ms(torch, lambda: corr.corr_pyramid_lookup_plain(
                 pyr, coords, radius), 20, flush),
             "library_ms": timed_ms(torch, lambda: grid_sample_lookup(
@@ -2351,7 +2595,9 @@ def backward_record(torch, levels, coords, grad, radius: int, flush,
            "levels": shapes, "max_abs_err": err, "max_abs_grad": gmax,
            "ms": timed_ms(torch, bwd, 20, flush),
            "profiler_ms": profiled_ms(torch, bwd, 20, flush,
-                                      name="corr_lookup_backward"),
+                                      name="corr_lookup_backward",
+                                      bound_ms=bb["bound_ms"],
+                                      label=f"backward {label}"),
            "plain_ms": timed_ms(
                torch, lambda: corr.corr_pyramid_lookup_backward_plain(
                    grad, coords, shapes, radius), 3, flush),
@@ -3001,6 +3247,213 @@ def video_and_attention_phase(torch, dev, tag: str) -> dict:
             f"{rec['library_ms']:.4f} ms; bound {rec['bound_ms']:.5f} ms by "
             f"{rec['bound_by']} ({rec['bound_bytes']} bytes), kernel at "
             f"{rec['bound_ms'] / rec['ms']:.1%} of it")
+    return out
+
+
+def volume_and_backbone_phase(torch, dev, tag: str) -> dict:
+    """Phase 14: MEMFOF, LLA-Flow (+RAFT), CSFlow, SplatFlow, ReCoVEr (mn,
+    rn, cx) and Flow-Anything on the card at their registered depths
+    (VB_SERVE), fp32, TF32 off.  Serves 3 consecutive windows of one
+    sequence through each (``llaflow``, ``llaflow_raft`` and ``csflow``
+    pairs each warm-started from the last's ``flow_small``; ``memfof`` 3
+    frames at 1080x1920 and 436x1024; ``splatflow`` 3 frames at
+    375x1242), counting the lookup launches of each forward and asserting
+    no autograd graph; times and profiles each fp32 forward (cuBLAS GEMMs
+    by name: LLA-Flow's ShiftLSA volume; depthwise convolutions:
+    ReCoVEr-CX) with its peak memory, and the ``validate --bf16`` casts of
+    ``memfof`` and ``csflow``; holds the card against the CPU at 256x320
+    for every name; holds both kernels against their plain versions on
+    MEMFOF's 1080p levels (Q = 8160 on 68x120 ... 8x15) and on CSFlow's
+    strip pyramid, and ``softsplat_average`` against the CPU at
+    SplatFlow's 1/8 KITTI shape; one train step at 128x160 card against
+    CPU (VB_STEP_CHECK); and trains VB_TRAIN at TRAIN_H x TRAIN_W at the
+    first of VB_TRAIN_BATCHES that fits."""
+    import copy
+
+    import ptlflow_tpu_torch
+    from ptlflow_tpu_torch.models.csflow.csflow import (
+        CSFlowCorrBlock, StripCrossCorrMap_v2)
+    from ptlflow_tpu_torch.models.memfof.memfof import MemfofCorrBlock
+    from ptlflow_tpu_torch.ops import correlation as corr
+    from ptlflow_tpu_torch.ops.warp import softsplat_average
+    from ptlflow_tpu_torch.parallel import train as ttrain
+    from ptlflow_tpu_torch.scripts.validate import cast_to_bf16
+    from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+
+    out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
+           "peak_gib": {}, "forward_gib": {}, "launches": {},
+           "card_vs_cpu_px": {}}
+    gemm = ("gemm", ("fprop", "dgrad", "wgrad", "conv", "implicit"))
+    named = {"llaflow": {"GEMMs": gemm, "softmax": "softmax"},
+             "llaflow_raft": {"GEMMs": gemm},
+             "recover_cx": {"depthwise conv": "depthwise", "GEMMs": gemm}}
+    model, built = None, None
+    for name, depth, window, warm, (h, w) in VB_SERVE:
+        t0 = time.perf_counter()
+        frames = smooth_frames(141, h, w, window + 2, shift=(2, 1))
+        if name != built:  # memfof serves two sizes on one model
+            del model
+            torch.cuda.empty_cache()
+            model = ptlflow_tpu_torch.get_model(name)
+            calib = IOAdapter(model).prepare_inputs(
+                smooth_frames(142, H, W, window, shift=(2, 1)))["images"]
+            parity_weights(torch, name, model, calib)
+            damp_to_served_size(torch, name, model, calib)
+            built = name
+        n, x = serve_sequence(torch, name, model, frames, depth,
+                              (1, 1, 2, h, w), 14, window=window, warm=warm)
+        key = f"{name} serve at {w}x{h}, 3 windows"
+        out["launches"][key] = n
+        if n != 3 * depth:
+            raise AssertionError(f"{key}: {n} lookup launches")
+        label = f"{name} fp32" + (" 1080p" if (h, w) == (SPRING_H, SPRING_W)
+                                  else "")
+        time_forward(torch, model, x["images"], label, tag,
+                     f"{depth} lookups", 14, out, named.get(name),
+                     reps=5, warmups=2)
+        if name in ("memfof", "csflow") and (h, w) == (H, W):
+            cast = copy.deepcopy(model)
+            if not cast_to_bf16(cast, name):
+                raise AssertionError(f"{name}: not on the allow-list")
+            time_forward(torch, cast, x["images"], f"{name} bf16 cast", tag,
+                         f"{depth} lookups", 14, out, named.get(name),
+                         reps=5, warmups=2)
+            del cast
+        log(f"[14 serve] {name} at {w}x{h}: {time.perf_counter() - t0:.1f} "
+            f"s with its timing")
+        del x
+    del model
+    torch.cuda.empty_cache()
+
+    # card against CPU at 256x320, the registered depths
+    t0 = time.perf_counter()
+    seq = smooth_frames(7, 256, 320, 3, shift=(3, 2))
+    for name, depth, window, _, _ in VB_SERVE:
+        if name in out["card_vs_cpu_px"]:
+            continue
+        cpu_model = ptlflow_tpu_torch.get_model(name, device="cpu")
+        x = IOAdapter(cpu_model).prepare_inputs(seq[:window])
+        parity_weights(torch, name, cpu_model, x["images"])
+        damp_to_served_size(torch, name, cpu_model, x["images"])
+        gpu_model = ptlflow_tpu_torch.get_model(name)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        want = cpu_model(x)["flows"]
+        got = gpu_model({"images": x["images"].to(dev)})["flows"].cpu()
+        diff = (got - want).abs().max().item()
+        out["card_vs_cpu_px"][name] = diff
+        log(f"[14 card vs cpu] {name} 256x320, {window} frames, {depth} "
+            f"lookups: max |dflow| {diff:.3e} px (flow up to "
+            f"{want.abs().max().item():.2f} px, tolerance "
+            f"{ATOL_CARD_CPU_PX} px)")
+        if not diff <= ATOL_CARD_CPU_PX:
+            raise AssertionError(f"{name}: card and CPU differ by {diff} px")
+        del cpu_model, gpu_model
+    log(f"[14 card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # both kernels on MEMFOF's 1080p levels and CSFlow's strip pyramid
+    t0 = time.perf_counter()
+    flush = flushes(torch, dev)["dirty"]
+    g = torch.Generator().manual_seed(14)
+    hf, wf = -(-SPRING_H // 32) * 2, -(-SPRING_W // 32) * 2  # 68 x 120
+    f1 = torch.randn(1, 1024, hf, wf, generator=g).to(dev)
+    f2 = torch.randn(1, 1024, hf, wf, generator=g).to(dev) + 0.5 * f1
+    memfof_levels = MemfofCorrBlock(f1, f2, 4, 4).pyramid
+    hp, wp = -(-H // 8), -(-W // 8)
+    s1 = torch.randn(1, 256, hp, wp, generator=g).to(dev)
+    s2 = torch.randn(1, 256, hp, wp, generator=g).to(dev)
+    strip_block = StripCrossCorrMap_v2(256, 256).to(dev).eval()
+    with torch.no_grad():
+        strip = strip_block(s1, s2)[0]
+        strip_levels = CSFlowCorrBlock(s1, s2, strip, 4, 4).pyramids[1]
+    del f1, f2, s1, s2, strip
+    out["kernels"] = {"corr_lookup": {}, "corr_lookup_backward": {}}
+    for label, levels, (b, h1, w1) in (
+            (f"memfof 1080p Q={hf * wf}", memfof_levels, (1, hf, wf)),
+            (f"csflow strip Q={hp * wp}", strip_levels, (1, hp, wp))):
+        coords = (torch.rand(b, 2, h1, w1, generator=g).to(dev) * 1.2
+                  - 0.1) * torch.tensor([w1, h1], device=dev).view(
+                      1, 2, 1, 1)
+        got = corr.corr_lookup_kernel(levels, coords, 4)
+        err = (got - corr.corr_pyramid_lookup_plain(levels, coords, 4)).abs(
+            ).max().item()
+        log(f"[14 kernel vs plain] {label}, levels "
+            f"{[tuple(p.shape[1:]) for p in levels]}, r=4, fp32: max |err| "
+            f"{err:.3e} (tolerance {ATOL_FP32})")
+        if not err <= ATOL_FP32:
+            raise AssertionError(f"{label}: lookup |err| {err}")
+        grad = torch.randn(got.shape, generator=g).to(dev)
+        out["kernels"]["corr_lookup"][label] = lookup_record(
+            torch, levels, coords, 4, err, flush)
+        out["kernels"]["corr_lookup_backward"][label] = backward_record(
+            torch, levels, coords, grad, 4, flush, label)
+        for kname, recs in out["kernels"].items():
+            rec = recs[label]
+            log(f"[14 kernels] [{tag}] {kname} at {label}, levels "
+                f"{rec['levels']}, r=4, fp32, L2 flushed per launch: "
+                f"{rec['ms']:.4f} ms by CUDA events, "
+                f"{fmt_ms(rec['profiler_ms'])} device time by the profiler; "
+                f"plain {rec['plain_ms']:.4f} ms; library "
+                f"{rec['library_ms']:.4f} ms; bound {rec['bound_ms']:.5f} ms "
+                f"by {rec['bound_by']} ({rec['bound_bytes']} bytes), kernel "
+                f"at {rec['bound_ms'] / rec['ms']:.1%} of it")
+        del got, grad, coords
+    del memfof_levels, strip_levels, strip_block
+
+    # softsplat_average at SplatFlow's 1/8 KITTI shape, card against CPU
+    sh, sw = -(-KITTI_H // 8), -(-KITTI_W // 8)
+    x = torch.randn(1, 128, sh, sw, generator=g)
+    flow = 3 * torch.randn(1, 2, sh, sw, generator=g)
+    want = softsplat_average(x, flow)
+    xd, fd = x.to(dev), flow.to(dev)
+    got = softsplat_average(xd, fd).cpu()
+    err = (got - want).abs().max().item()
+    splat_ms = timed_ms(torch, lambda: softsplat_average(xd, fd), 20, flush)
+    out["softsplat"] = {"shape": [1, 128, sh, sw], "max_abs_err": err,
+                        "ms": splat_ms}
+    log(f"[14 softsplat] [{tag}] softsplat_average (1, 128, {sh}, {sw}), "
+        f"card against CPU: max |err| {err:.3e} (tolerance {ATOL_SPLAT}); "
+        f"{splat_ms:.4f} ms by CUDA events, L2 flushed")
+    if not err <= ATOL_SPLAT:
+        raise AssertionError(f"softsplat_average: card and CPU differ by "
+                             f"{err}")
+    log(f"[14 kernels] {time.perf_counter() - t0:.1f} s")
+
+    # one train step card against CPU at 128x160, 2 iterations
+    t0 = time.perf_counter()
+    out["train_step_card_vs_cpu"] = {
+        name: train_step_card_vs_cpu(torch, name, dev, {"iters": 2}, launches,
+                                     batch_seed=seed)
+        for name, launches, seed in VB_STEP_CHECK}
+    log(f"[14 train step card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # training at 368x496 at the first batch that fits
+    th, tw = -(-TRAIN_H // 8), -(-TRAIN_W // 8)
+    mh, mw = -(-TRAIN_H // 32) * 2, -(-TRAIN_W // 32) * 2  # memfof's 1/16
+
+    def pyramid_shapes(h, w, copies):
+        def shapes(b):
+            return [(b * h * w, h >> k, w >> k) for k in range(4)] * copies
+        return shapes
+
+    out["train"] = {}
+    for name, args, depth in VB_TRAIN:
+        t0 = time.perf_counter()
+        model = ptlflow_tpu_torch.get_model(name, args=args)
+        batch = train_batch(torch, 14, 2, TRAIN_H, TRAIN_W, dev)
+        parity_weights(torch, name, model, batch["images"])
+        del batch
+        tx = ttrain.make_optimizer(lr=4e-4, wdecay=1e-4, total_steps=120000,
+                                   pct_start=0.05, grad_clip=1.0)
+        shapes = (pyramid_shapes(mh, mw, 2) if name == "memfof"
+                  else pyramid_shapes(th, tw, 2 if name == "csflow" else 1))
+        out["train"][name] = train_at_largest_batch(
+            torch, dev, tag, model, tx, VB_TRAIN_BATCHES, VB_TRAIN_STEPS,
+            depth, name, 14, level_shapes=shapes, profile_runs=1,
+            launches=(depth, depth))
+        log(f"[14 train] {name}: {time.perf_counter() - t0:.1f} s with its "
+            f"profile")
+        del model, tx
+        torch.cuda.empty_cache()
     return out
 
 

@@ -28,19 +28,21 @@ def conv3x3(in_planes: int, out_planes: int, stride: int = 1) -> nn.Conv2d:
 class ConvNextBlock(nn.Module):
     """Depthwise 7x7 convolution; LayerNorm, Linear, GELU and Linear over
     the channels of each pixel; the layer scale ``gamma``; a residual; and
-    the ``final`` 1x1 convolution to ``output_dim`` channels."""
+    the ``final`` 1x1 convolution to ``output_dim`` channels.  The layers
+    cast their weights to their input's dtype (MEMFOF's bf16 weight
+    cast)."""
 
     def __init__(self, dim: int, output_dim: int,
                  layer_scale_init_value: float = 1e-6):
         super().__init__()
         self.layer_scale_init_value = layer_scale_init_value
-        self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
+        self.dwconv = pnn.CastConv2d(dim, dim, 7, padding=3, groups=dim)
         self.norm = pnn.LayerNorm(dim, eps=1e-6)
-        self.pwconv1 = nn.Linear(dim, 4 * output_dim)
-        self.pwconv2 = nn.Linear(4 * output_dim, dim)
+        self.pwconv1 = pnn.CastLinear(dim, 4 * output_dim)
+        self.pwconv2 = pnn.CastLinear(4 * output_dim, dim)
         self.gamma = (nn.Parameter(torch.full((dim,), layer_scale_init_value))
                       if layer_scale_init_value > 0 else None)
-        self.final = nn.Conv2d(dim, output_dim, 1, padding=0)
+        self.final = pnn.CastConv2d(dim, output_dim, 1, padding=0)
 
     def init_own_params(self, gen: torch.Generator) -> None:
         if self.gamma is not None:

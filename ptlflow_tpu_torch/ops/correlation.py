@@ -12,6 +12,9 @@ a function of the coords: the hand-written CUDA kernel
 version :func:`corr_pyramid_lookup_plain` for one on the CPU.
 :func:`corr_pyramid_lookup` is the same as a one-shot call, and
 :class:`CorrBlock` the pyramid of two feature maps with its prepared lookup.
+:func:`all_pairs_correlation` is the float32 level-0 volume and
+:func:`pool_volume_pyramid` pools such a volume into levels, for the models
+that change the volume before pooling it (LLA-Flow, CSFlow).
 
 The lookup is differentiable with respect to the pyramid and, by default,
 never the coords, as RAFT trains it (RAFT's family stops the coords'
@@ -78,6 +81,36 @@ def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
                 fmap2 = F.avg_pool2d(fmap2, 2, 2)
             else:  # F.avg_pool2d refuses an output side of 0
                 fmap2 = fmap2.new_zeros((b, c, h2 // 2, w2 // 2))
+    return pyramid
+
+
+def all_pairs_correlation(fmap1: torch.Tensor,
+                          fmap2: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) features -> the (B, H*W, H, W) volume of every pair's
+    dot product over sqrt(C), accumulated and returned in float32 (a
+    reduced-precision product is exact in float32) whatever the features'
+    dtype, as the JAX package's ``all_pairs_correlation``."""
+    b, c, h, w = fmap1.shape
+    f1 = fmap1.reshape(b, c, h * w).transpose(1, 2).float()
+    corr = torch.matmul(f1, fmap2.reshape(b, c, -1).float()) / math.sqrt(c)
+    return corr.reshape(b, h * w, *fmap2.shape[-2:])
+
+
+def pool_volume_pyramid(volume: torch.Tensor,
+                        num_levels: int) -> List[torch.Tensor]:
+    """``num_levels`` levels of a (Q, H, W) volume, each the 2x2 average
+    pool of the last (the JAX package's ``avg_pool2d`` of the volume, as
+    LLA-Flow and CSFlow pool theirs): a side under 2 px pools to 0 px,
+    floored as ``build_corr_pyramid`` floors it, so a small map gives empty
+    levels."""
+    pyramid = [volume]
+    for _ in range(num_levels - 1):
+        q, h, w = volume.shape
+        if min(h, w) >= 2:
+            volume = F.avg_pool2d(volume[:, None], 2, 2)[:, 0]
+        else:  # F.avg_pool2d refuses an output side of 0
+            volume = volume.new_zeros((q, h // 2, w // 2))
+        pyramid.append(volume)
     return pyramid
 
 

@@ -31,15 +31,23 @@ def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor,
     """Sample ``img`` (N, C, H, W) bilinearly at pixel coordinates
     ``coords`` (N, 2, Ho, Wo; x then y), align_corners=True, zero padding
     (``ptlflow_tpu/ops/grid_sample.py::bilinear_sampler``).  The coords are
-    normalised to [-1, 1] as the JAX package normalises them; with
-    ``mask``, also returns (N, 1, Ho, Wo), 1 where the normalised
-    coordinates lie strictly inside (-1, 1) on both axes, else 0."""
+    normalised to [-1, 1] in float32 at least, as the JAX package normalises
+    them, and a reduced-precision image is sampled in float32: only the
+    output is cast back to the image's dtype, as the JAX package's
+    ``grid_sample`` does (a bfloat16 grid would put the samples of a map
+    1024 px wide up to 4 px off).  With ``mask``, also returns
+    (N, 1, Ho, Wo) in the coords' dtype, 1 where the normalised coordinates
+    lie strictly inside (-1, 1) on both axes, else 0."""
     h, w = img.shape[-2:]
-    xgrid = 2.0 * coords[:, 0] / (w - 1) - 1.0
-    ygrid = 2.0 * coords[:, 1] / (h - 1) - 1.0
+    cdtype = torch.promote_types(coords.dtype, torch.float32)
+    c = coords.to(cdtype)
+    xgrid = 2.0 * c[:, 0] / (w - 1) - 1.0
+    ygrid = 2.0 * c[:, 1] / (h - 1) - 1.0
     grid = torch.stack([xgrid, ygrid], dim=-1)
-    out = F.grid_sample(img, grid.to(img.dtype), mode="bilinear",
+    compute = torch.promote_types(img.dtype, cdtype)
+    out = F.grid_sample(img.to(compute), grid.to(compute), mode="bilinear",
                         padding_mode="zeros", align_corners=True)
+    out = out.to(img.dtype)
     if mask:
         m = (xgrid > -1) & (ygrid > -1) & (xgrid < 1) & (ygrid < 1)
         return out, m[:, None].to(coords.dtype)

@@ -1,7 +1,8 @@
 """Warping ops of ``ptlflow_tpu/ops/warp.py``, NCHW: ``backward_warp`` and
 the forward-backward occlusion check ``fb_check`` (the augmentations'
-``GenerateFBCheckFlowOcclusion``), and the forward projection of a flow
-field for RAFT's warm start (``forward_interpolate``)."""
+``GenerateFBCheckFlowOcclusion``), the forward projection of a flow
+field for RAFT's warm start (``forward_interpolate``) and SplatFlow's
+average-mode forward splatting (``softsplat_average``)."""
 
 from __future__ import annotations
 
@@ -82,3 +83,38 @@ def forward_interpolate(flow: torch.Tensor,
         vals = torch.where(hit > 0, vals, neighbor)
         hit = torch.maximum(hit, grown)
     return vals * (hit > 0)
+
+
+def softsplat_average(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Average-mode soft forward splatting (``ptlflow_tpu/ops/warp.py::
+    softsplat_average``, SplatFlow's): each pixel p of ``x`` (B, C, H, W)
+    and a ones channel scatter to the four integer corners of
+    p + ``flow``(p) (flow (B, 2, H, W)) with bilinear weights; corners
+    outside the frame go to a spare row that is dropped.  The sum is
+    divided by the splatted weight, 1 where that weight is 0.  Accumulated
+    in ``x``'s dtype, the four corners in turn, each source in order: one
+    ``index_add_`` over the flattened (B * (H*W + 1), C + 1) buffer, in
+    plain PyTorch on either device (on the card its float atomics add in no
+    fixed order)."""
+    b, c, h, w = x.shape
+    hw = h * w
+    coords = coords_grid(b, h, w, dtype=flow.dtype, device=flow.device) + flow
+    x0, y0 = torch.floor(coords[:, 0]), torch.floor(coords[:, 1])
+    fx, fy = coords[:, 0] - x0, coords[:, 1] - y0
+    vals = torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
+    vals = vals.reshape(b, c + 1, hw).transpose(1, 2)  # (B, HW, C+1)
+    base = (torch.arange(b, device=x.device) * (hw + 1))[:, None]
+    index, source = [], []
+    for dx, dy, wgt in ((0, 0, (1 - fx) * (1 - fy)), (1, 0, fx * (1 - fy)),
+                        (0, 1, (1 - fx) * fy), (1, 1, fx * fy)):
+        tx, ty = (x0 + dx).long(), (y0 + dy).long()
+        valid = (tx >= 0) & (tx < w) & (ty >= 0) & (ty < h)
+        index.append(base + torch.where(valid, ty * w + tx, hw).reshape(b, hw))
+        source.append((vals * wgt.reshape(b, hw, 1)).to(x.dtype))
+    out = x.new_zeros((b * (hw + 1), c + 1)).index_add_(
+        0, torch.cat(index, dim=1).reshape(-1),
+        torch.cat(source, dim=1).reshape(-1, c + 1))
+    out = out.reshape(b, hw + 1, c + 1)[:, :hw]
+    den = out[..., -1:]
+    out = out[..., :-1] / torch.where(den == 0, torch.ones_like(den), den)
+    return out.transpose(1, 2).reshape(b, c, h, w)

@@ -56,6 +56,18 @@ PREFIXES = ("network.",)
 RENAMES = (("decoder_layer_cross_attend.", "decoder_layer.cross_attend."),
            ("ffn.2.", "ffn.3."))
 
+# (JAX name, reference name) of the module that holds a leaf, tried where
+# the target lacks the name: the torchvision ConvNeXt block of ReCoVEr,
+# whose ``block`` Sequential the JAX package names by layer
+# (ptlflow_tpu/models/recover/backbones.py:154-166).
+MODULE_RENAMES = {"conv": "block.0", "norm": "block.2", "fc1": "block.3",
+                  "fc2": "block.5"}
+
+# Leaves that the JAX package stores flattened: the ConvNeXt block's
+# ``layer_scale``, (dim,) there and (dim, 1, 1) in the reference
+# (ptlflow_tpu/models/recover/backbones.py:143-152).
+LEAF_RESHAPES = ("layer_scale",)
+
 
 def state_dict_from_jax(params: Dict[str, Any],
                         target: Optional[torch.nn.Module] = None
@@ -74,13 +86,26 @@ def state_dict_from_jax(params: Dict[str, Any],
     if target is not None:
         out = _rename_to_target(out, set(target.state_dict()))
         _add_target_only(out, target)
+        _reshape_to_target(out, target)
     return out
+
+
+def _reshape_to_target(out: Dict[str, torch.Tensor],
+                       target: torch.nn.Module) -> None:
+    """Each of the ``LEAF_RESHAPES`` to the target's shape, where it holds
+    as many elements in another shape."""
+    for name, t in target.state_dict().items():
+        have = out.get(name)
+        if (name.rsplit(".", 1)[-1] in LEAF_RESHAPES and have is not None
+                and have.shape != t.shape and have.numel() == t.numel()):
+            out[name] = have.reshape(t.shape)
 
 
 def _rename_to_target(out: Dict[str, torch.Tensor],
                       own: Set[str]) -> Dict[str, torch.Tensor]:
     """Each name that the target lacks under its ``RENAMES`` form, with or
-    without one of the ``PREFIXES``, where the target has that form."""
+    without one of the ``PREFIXES``, or with its leaf's module under its
+    ``MODULE_RENAMES`` name, where the target has that form."""
     renamed = {}
     for name, t in out.items():
         if name not in own:
@@ -88,8 +113,11 @@ def _rename_to_target(out: Dict[str, torch.Tensor],
             for jax_name, ref_name in RENAMES:
                 alt = re.sub(r"(^|\.)" + re.escape(jax_name),
                              r"\g<1>" + ref_name, alt)
+            *path, module, leaf = [""] + name.split(".")
+            moved = ".".join(path[1:] + [MODULE_RENAMES.get(module, module),
+                                         leaf])
             name = next((c for c in [alt] + [p + alt for p in PREFIXES]
-                         if c in own), name)
+                         + [moved] if c in own), name)
         renamed[name] = t
     return renamed
 

@@ -1,8 +1,9 @@
 """The lookup kernels' wrappers and build, without JAX.
 
 The tests marked ``cuda`` hold the hand-written kernels (the lookup and its
-backward) against their plain PyTorch versions and skip where there is no
-card.  This file imports
+backward) against their plain PyTorch versions, and ``softsplat_average``
+on the card against the CPU, and skip where there is no card.  This file
+imports
 nothing of JAX, so on a machine without JAX it runs on its own:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
@@ -14,7 +15,10 @@ import torch
 
 from tests._torch_threads import cap_torch_threads  # noqa: F401
 
+from ptlflow_tpu_torch.models.csflow.csflow import CSFlowCorrBlock
+from ptlflow_tpu_torch.models.memfof.memfof import MemfofCorrBlock
 from ptlflow_tpu_torch.ops import correlation as corr
+from ptlflow_tpu_torch.ops.warp import softsplat_average
 from ptlflow_tpu_torch.utils import cuda_build
 
 
@@ -310,3 +314,63 @@ def test_coords_gradient_on_card_matches_plain(radius):
         for g, w in zip(got, want):
             torch.testing.assert_close(
                 g, w, rtol=0, atol=1e-5 * max(w.abs().max().item(), 1.0))
+
+
+def _card_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_at_memfof_and_csflow_shapes_on_card():
+    """Both kernels on MEMFOF's re-correlated levels (a 17x30 map: 17x30,
+    8x15, 4x7, 2x3) and on CSFlow's two pyramids (the product and a strip
+    volume of a 6x10 map, down to an empty level), on the card, against
+    their plain versions: the lookup within 1e-5, its backward within 1e-5
+    of the largest gradient."""
+    dev = _card_or_skip()
+    rng = np.random.RandomState(86)
+
+    def maps(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+
+    def coords(b, h, w):
+        c = (rng.rand(b, 2, h, w) * 1.6 - 0.3) * np.array(
+            [w, h])[None, :, None, None]
+        return torch.from_numpy(c.astype(np.float32)).to(dev)
+
+    memfof = MemfofCorrBlock(maps(1, 64, 17, 30), maps(1, 64, 17, 30), 4, 4)
+    cs = CSFlowCorrBlock(maps(2, 32, 6, 10), maps(2, 32, 6, 10),
+                         maps(2, 6, 10, 1, 6, 10), 4, 4)
+    cases = [(memfof.pyramid, coords(1, 17, 30))]
+    cases += [(p, coords(2, 6, 10)) for p in cs.pyramids]
+    for pyr, c in cases:
+        got = corr.corr_lookup_kernel(pyr, c, 4)
+        want = corr.corr_pyramid_lookup_plain(pyr, c, 4)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        shapes = _shapes(pyr)
+        grad = torch.randn_like(got)
+        live = [(a, b) for a, b in zip(
+            corr.corr_lookup_backward_kernel(grad, c, shapes, 4),
+            corr.corr_pyramid_lookup_backward_plain(grad, c, shapes, 4))
+            if b.numel()]
+        gmax = max(b.abs().max().item() for _, b in live)
+        for a, b in live:
+            assert (a - b).abs().max().item() <= 1e-5 * gmax
+
+
+@pytest.mark.cuda
+def test_softsplat_average_on_card_matches_cpu():
+    """SplatFlow's splat of 128 channels at its 1/8 KITTI shape (47x156)
+    on the card against the CPU: within 1e-5 (float atomics add in no
+    fixed order)."""
+    dev = _card_or_skip()
+    rng = np.random.RandomState(88)
+    x = torch.from_numpy(rng.randn(1, 128, 47, 156).astype(np.float32))
+    flow = torch.from_numpy((3 * rng.randn(1, 2, 47, 156)).astype(
+        np.float32))
+    want = softsplat_average(x, flow)
+    got = softsplat_average(x.to(dev), flow.to(dev)).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

@@ -72,24 +72,29 @@ def test_port_sources_import_no_jax():
     assert not offenders
 
 
-PORTED = ["craft", "dpflow", "flowformer", "flowformer_pp", "gma",
-          "lcv_raft", "lcv_raft_small", "memflow", "memflow_t", "neuflow2",
+PORTED = ["craft", "csflow", "dpflow", "flow_anything", "flowformer",
+          "flowformer_pp", "gma", "lcv_raft", "lcv_raft_small", "llaflow",
+          "llaflow_raft", "memflow", "memflow_t", "memfof", "neuflow2",
           "raft", "raft_small", "rapidflow", "rapidflow_it1",
-          "rapidflow_it2", "rapidflow_it3", "rapidflow_it6", "rpknet",
-          "sea_raft", "sea_raft_l", "sea_raft_m", "sea_raft_s", "skflow",
-          "streamflow", "videoflow_bof", "videoflow_mof"]
+          "rapidflow_it2", "rapidflow_it3", "rapidflow_it6", "recover_cx",
+          "recover_mn", "recover_rn", "rpknet", "sea_raft", "sea_raft_l",
+          "sea_raft_m", "sea_raft_s", "skflow", "splatflow", "streamflow",
+          "videoflow_bof", "videoflow_mof"]
 
 
 def test_registry():
-    """The ported names; the trainable ones are the JAX package's
-    trainable names among them (``flowformer_pp`` and the VideoFlows are
-    not trainable)."""
+    """The 35 ported names; the trainable ones are the JAX package's
+    trainable names among them (``flowformer_pp``, the VideoFlows,
+    ``memfof``, ``splatflow`` and ``flow_anything`` are not trainable)."""
     assert ptlflow_tpu_torch.get_model_names() == PORTED
+    assert len(PORTED) == 35
     assert ptlflow_tpu_torch.get_trainable_model_names() == [
         n for n in PORTED if n in ptlflow_tpu.get_trainable_model_names()]
-    for name in ("flowformer_pp", "videoflow_bof", "videoflow_mof"):
+    for name in ("flowformer_pp", "videoflow_bof", "videoflow_mof",
+                 "memfof", "splatflow", "flow_anything"):
         assert name not in ptlflow_tpu_torch.get_trainable_model_names()
-    for name in ("craft", "neuflow2", "streamflow"):
+    for name in ("craft", "neuflow2", "streamflow", "csflow", "llaflow",
+                 "llaflow_raft", "recover_cx", "recover_mn", "recover_rn"):
         assert name in ptlflow_tpu_torch.get_trainable_model_names()
     assert ptlflow_tpu_torch.get_ptlflow_trained_model_names() == [
         "dpflow", "gma", "raft", "raft_small", "rapidflow", "rapidflow_it1",
@@ -197,14 +202,25 @@ def test_checkpoint_round_trip(tmp_path):
     ("dpflow", "fnet.up_gru.weight"),
     ("craft", "corr_fn.setrans.key.weight"),
     ("videoflow_mof", "update_block.encoder.init_hidden_state"),
-    ("streamflow", "update_block.transformer_block.transformer_block.")])
+    ("streamflow", "update_block.transformer_block.transformer_block."),
+    ("memfof", "update_block.aggregator.gamma"), ("llaflow", "lsa.gamma"),
+    ("llaflow_raft", "s_lsa.to_f1.weight"),
+    ("csflow", "strip_corr_block_v2.conv2_2.bn.running_var"),
+    ("splatflow", "update.gru_sp.convq2.weight"),
+    ("recover_mn", "cnet.features.4.block.2.fc1.weight"),
+    ("recover_cx", "cnet.features.1.2.block.3.weight"),
+    ("recover_rn", "cnet.layer2.0.downsample.1.weight"),
+    ("flow_anything", "fnet.layer3.5.conv2.weight")])
 def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     """A Lightning-style .ckpt in the reference's layout, converted from a
     JAX tree (MemFlow nests its net under ``network.``, LCV-RAFT stores
     ``corr_block.eye``, RAPIDFlow its NeXt1D factors, RPKNet its layer
     scales, DPFlow the transposed convolution ``up_gru``, CRAFT its tied
     query under ``key.`` too, VideoFlow-MOF its initial motion state as
-    (1, 1, 48, 1, 1), StreamFlow its temporal transformer), loads into
+    (1, 1, 48, 1, 1), StreamFlow its temporal transformer, MEMFOF and
+    LLA-Flow their ``gamma`` blends, CSFlow its strip block, SplatFlow its
+    second GRU branch, ReCoVEr torchvision's MobileNetV3 and ConvNeXt
+    names, ConvNeXt's ``layer_scale`` as (dim, 1, 1)), loads into
     ``get_model`` strictly, every tensor equal."""
     import jax
 
