@@ -137,7 +137,23 @@ Phases, each of which must pass, else the script exits non-zero:
     one train step at 128x160 of ``csflow``, ``llaflow``, ``llaflow_raft``,
     ``memfof``, ``recover_mn`` and ``recover_cx`` on both; and train
     ``csflow`` and ``llaflow`` (12 iterations) and ``memfof`` at 368x496 at
-    the first batch of (10, 8, 6, 4) that fits.
+    the first batch of (10, 8, 6, 4) that fits;
+15. WAFT (``waft_dav2_a1``, ``waft_dav2_a2``, ``waft_twins_a2``; the gated
+    ``waft_dinov3_a2`` is not constructible), FlowSeek (``flowseek_t``,
+    ``flowseek_m``), DIP, Flow1D and GMFlowNet (+``_mix``), the ViT
+    backbones, the basis fields, PatchMatch, the 1-D lookup and POLA:
+    serve 3 consecutive pairs of one sequence at 436x1024 through each
+    (``flow1d`` also at 1080x1920; ``flow1d`` and ``gmflownet(_mix)``
+    warm-started from the last's ``flow_small``), counting 4 lookups a
+    forward for FlowSeek, 32 for GMFlowNet and none elsewhere; time and
+    profile each fp32 forward with its peak memory and the ``validate
+    --bf16`` casts of the five allow-list names; the flows of all nine at
+    256x320 on the card against the CPU (GMFlowNet's initial matches
+    counted where they differ); one train step at 128x160 of
+    ``waft_twins_a2``, ``dip``, ``flow1d`` and ``gmflownet`` on both;
+    train ``gmflownet`` (32 iterations) and ``waft_twins_a2`` at 368x496 at
+    the first batch of (10, 8, 6, 4, 2) that fits; and both kernels against
+    their plain versions and timed at GMFlowNet's training pyramid.
 
 A profiler reading under its kernel's bound, or whose kernel records do not
 match the launches that the wrappers counted, is printed as invalid and
@@ -150,8 +166,9 @@ inputs (other, repo, repo, other), in the same run.
 The second-to-last line is ``{"kernels": [...]}``, the line before it the
 card's name and power limit (after ``{"harness": ...}``,
 ``{"train_cli": ...}``, ``{"flowformer": ...}``, ``{"sk_family": ...}``,
-``{"recurrent_pyramid": ...}``, ``{"video_and_attention": ...}`` and
-``{"volume_and_backbone": ...}``, phases 8-14's numbers), and the last
+``{"recurrent_pyramid": ...}``, ``{"video_and_attention": ...}``,
+``{"volume_and_backbone": ...}`` and ``{"slice13": ...}``, phases 8-15's
+numbers), and the last
 line ``{"ok": true, "device": {...}}``.  With no card it prints no result
 and exits 2.
 """
@@ -299,6 +316,43 @@ VB_TRAIN = (("csflow", {"iters": ITERS}, 2 * ITERS),
             ("memfof", {}, 16))
 VB_TRAIN_BATCHES = (10, 8, 6, 4)
 VB_TRAIN_STEPS = 4
+# Phase 15: WAFT, FlowSeek, DIP, Flow1D and GMFlowNet at their registered
+# depths: (model, lookup launches a forward, warm-started from the last
+# pair's flow_small, (H, W)).  Flow1D also at 1920x1080, the high-resolution
+# use it was designed for.  WAFT, FlowSeek and DIP read no previous
+# prediction (as in the JAX package), so their pairs are served cold
+S13_NAMES = ("waft_dav2_a1", "waft_dav2_a2", "waft_twins_a2", "flowseek_t",
+             "flowseek_m", "dip", "flow1d", "gmflownet", "gmflownet_mix")
+S13_SERVE = (("waft_dav2_a1", 0, False, (H, W)),
+             ("waft_dav2_a2", 0, False, (H, W)),
+             ("waft_twins_a2", 0, False, (H, W)),
+             ("flowseek_t", 4, False, (H, W)),
+             ("flowseek_m", 4, False, (H, W)),
+             ("dip", 0, False, (H, W)),
+             ("flow1d", 0, True, (H, W)),
+             ("flow1d", 0, True, (SPRING_H, SPRING_W)),
+             ("gmflownet", 32, True, (H, W)),
+             ("gmflownet_mix", 32, True, (H, W)))
+# the bf16 allow-list's names: validate --bf16 casts their weights
+S13_BF16 = ("waft_dav2_a1", "waft_dav2_a2", "waft_twins_a2", "flowseek_t",
+            "flowseek_m")
+# one train step card against CPU at 128x160, 2 iterations (rounds): (model,
+# the forward kernel's and the backward's launches, the batch seed).  Seed
+# 6 parts flow1d's card from its CPU by 7.65e-4 of the whole gradient's
+# norm (the CPU with its input one rounding off: 3.3e-4); on the CPU, seeds
+# 6-11 move it by 6.6e-5 (seed 9) to 1.0e-3 (seed 7) that way
+S13_STEP_CHECK = (("waft_twins_a2", (0, 0), 6), ("dip", (0, 0), 6),
+                  ("flow1d", (0, 0), 9), ("gmflownet", (2, 2), 6))
+# timed training at 368x496 at the first batch that fits, at the registered
+# depths: gmflownet's 32 iterations (32 lookups and 32 backward lookups a
+# step), waft_twins_a2's 5 refinements (no lookup)
+S13_TRAIN = (("gmflownet", {}, (32, 32)), ("waft_twins_a2", {}, (0, 0)))
+S13_TRAIN_BATCHES = (10, 8, 6, 4, 2)
+S13_TRAIN_STEPS = 4
+# GMFlowNet's mutual-match initialisation at 256x320 on smooth frames
+# shifted by whole feature pixels (x, y), so that most pixels have a clear
+# best match
+S13_MATCH_SHIFT = (16, 8)
 # softsplat_average, card against CPU: float32 sums of a few terms whose
 # atomics add in no fixed order on the card
 ATOL_SPLAT = 1e-5
@@ -774,6 +828,9 @@ def flow_heads(model):
                 (model.update.flow_head_sp.conv2, [0, 1])]
     if type(model).__name__ == "memfof":
         return [(model.flow_head[2], [0, 1, 6, 7])]
+    if hasattr(model, "update_block_s"):  # DIP: propagation and search
+        return [(model.update_block_s.flow_head.conv2, [0, 1]),
+                (model.update_block.flow_head.conv2, [0, 1])]
     return [(flow_conv(model), [0, 1])]
 
 
@@ -814,6 +871,67 @@ def condition_volume_and_backbone(torch, name: str, model, images) -> None:
                 blk.bn.bias.mul_(1e-3)
 
 
+def damp_sea_raft_heads(torch, model) -> None:
+    """SEA-RAFT's flow head (also FlowSeek's): its flow channels damped by
+    0.01, its info channels by 0.1, and each ConvNeXt refine block's
+    ``final`` conv by 0.1."""
+    with torch.no_grad():
+        head = model.flow_head[2]
+        head.weight[:2].mul_(0.01)
+        head.bias[:2].mul_(0.01)
+        head.weight[2:].mul_(0.1)
+        head.bias[2:].mul_(0.1)
+        for blk in model.update_block.refine:
+            blk.final.weight.mul_(0.1)
+
+
+def condition_slice13(torch, name: str, model, images) -> None:
+    """Phase 15's models, conditioned to steps of trained size, as their CPU
+    tests do.  Every layer scale (DINOv2's LayerScale ``gamma``, 1.0 at
+    init, 12 blocks deep; ConvNeXt's) seeded in [0.1, 1].  WAFT: each
+    feature head's last conv damped to maps of unit size (Twins' ``final``
+    by 1e-3, the DepthAnything heads' output convs by 1e-2), the refine
+    ViT's output conv by 0.01, the hidden state's update by 0.5 (the
+    refinement then keeps the state's size) and the flow head's last conv
+    by 0.01.  FlowSeek: as SEA-RAFT (flow channels by 0.01, info by 0.1,
+    each ConvNeXt ``final`` by 0.1, the norms calibrated on ``images``)
+    and ``merge_head``'s last conv by 0.05 (the depth features reach ~200
+    otherwise).  DIP and Flow1D: the RAFT-style flow heads damped by 0.03
+    (20 + 20 rounds, 32 iterations); GMFlowNet's by 0.01 (its flows start
+    at the matches, 60 px on random features at 256x320, and at 0.03 one
+    rounding of the input moves them by 4e-3 px); seeded norms."""
+    set_layer_scales(torch, model, 15)
+    with torch.no_grad():
+        def damp(mod, factor):
+            mod.weight.mul_(factor)
+            if mod.bias is not None:
+                mod.bias.mul_(factor)
+
+        if name.startswith("waft"):
+            enc = getattr(model, "encoder", None)
+            if hasattr(enc, "final"):
+                damp(enc.final, 1e-3)
+            if hasattr(enc, "dpt_head"):
+                damp(enc.dpt_head.refine[0].out_conv, 1e-2)
+            if hasattr(model, "da_feature"):
+                damp(model.da_feature.depth_anything.depth_head.scratch
+                     .output_conv1, 1e-2)
+            damp(model.refine_net.dpt_head.scratch.output_conv1, 0.01)
+            damp(model.refine_transform, 0.5)
+            damp(model.flow_head[2], 0.01)
+            return
+        if name.startswith("flowseek"):
+            damp_sea_raft_heads(torch, model)
+            damp(model.merge_head[4], 0.05)
+        else:
+            for conv, _ in flow_heads(model):
+                damp(conv, 0.01 if name.startswith("gmflownet") else 0.03)
+    if name.startswith("flowseek"):
+        calibrate_norms(torch, model, images)
+    else:
+        randomise_norms(torch, model, 15)
+
+
 def parity_weights(torch, name: str, model, images) -> None:
     """Random weights conditioned to steps of trained size, so that two
     correct runs agree (random RAFT-family weights are chaotic: fp32
@@ -830,7 +948,11 @@ def parity_weights(torch, name: str, model, images) -> None:
     0.01 (32 iterations), seeded norms and ``learned_metric``.  CRAFT,
     NeuFlow v2, VideoFlow, StreamFlow: ``condition_video_and_attention``.
     MEMFOF, LLA-Flow, CSFlow, SplatFlow, ReCoVEr, Flow-Anything:
-    ``condition_volume_and_backbone``."""
+    ``condition_volume_and_backbone``.  WAFT, FlowSeek, DIP, Flow1D,
+    GMFlowNet: ``condition_slice13``."""
+    if name in S13_NAMES:
+        condition_slice13(torch, name, model, images)
+        return
     if name.startswith("flowformer"):
         condition_flowformer(torch, model)
         return
@@ -862,14 +984,7 @@ def parity_weights(torch, name: str, model, images) -> None:
         return
     if name.startswith("sea_raft"):
         set_layer_scales(torch, model, 1)
-        with torch.no_grad():
-            head = model.flow_head[2]
-            head.weight[:2].mul_(0.01)
-            head.bias[:2].mul_(0.01)
-            head.weight[2:].mul_(0.1)
-            head.bias[2:].mul_(0.1)
-            for blk in model.update_block.refine:
-                blk.final.weight.mul_(0.1)
+        damp_sea_raft_heads(torch, model)
         calibrate_norms(torch, model, images)
         return
     damp_flow_head(model)
@@ -934,11 +1049,12 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
                            batch_seed: int = 5) -> dict:
     """One train step of ``name`` at 128x160, batch 2, 2 iterations (or
     the ``args`` that set 2 decoder steps, or 2 steps a level), on the
-    CPU and on the card from the same weights (``parity_weights``), and on
-    the CPU again with the images one fp32 rounding off: the loss within
-    RTOL_LOSS, the BatchNorm statistics within ATOL_BN and the whole
-    gradient within GRAD_RTOL, by its largest element and by its norm; the
-    per-tensor figures printed beside those of the nudged CPU run.  The card
+    CPU and on the card from the same weights (``parity_weights``): the
+    loss within RTOL_LOSS, the BatchNorm statistics within ATOL_BN and the
+    whole gradient within GRAD_RTOL, by its largest element and by its
+    norm; the per-tensor figures printed, and where a check fails, beside
+    those of the CPU again with the images one fp32 rounding off (how far
+    rounding alone moves this step), before the failure is raised.  The card
     step must launch each kernel ``lookups`` times (a pair: the forward
     kernel's launches, the backward's).  The batch holds sequences of
     ``frames`` frames (``train_batch``, seeded with ``batch_seed``)."""
@@ -954,12 +1070,12 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
     expected = lookups if isinstance(lookups, tuple) else (lookups, lookups)
     gpu_model = ptlflow_tpu_torch.get_model(name, args=args)
     gpu_model.load_state_dict(cpu_model.state_dict())
-    # the CPU again, on images one fp32 rounding off (x (1 + 2^-23))
+    # the CPU again, on images one fp32 rounding off (x (1 + 2^-23)), where
+    # a check fails
     nudged = dict(batch, images=batch["images"] * (1 + 2.0 ** -23))
     step_out = {}
-    for label, model, where, b in (("cpu", cpu_model, "cpu", batch),
-                                   ("card", gpu_model, dev, batch),
-                                   ("cpu nudged", cpu_model, "cpu", nudged)):
+
+    def step(label, model, where, b):
         params, _ = split_trainable(model)
         corr.corr_lookup_kernel.launches = 0
         corr.corr_lookup_backward_kernel.launches = 0
@@ -968,13 +1084,14 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
         step_out[label] = (loss.item(), list(params), [g.cpu() for g in grads],
                            {k: v.cpu() for k, v in bn_stats(model).items()},
                            ttrain.global_norm(grads).item())
-        if label == "card":
-            card_launches = (corr.corr_lookup_kernel.launches,
-                             corr.corr_lookup_backward_kernel.launches)
-            if card_launches != expected:
-                raise AssertionError(f"{name} card train step: launches "
-                                     f"{card_launches}, expected "
-                                     f"{expected}")
+
+    step("cpu", cpu_model, "cpu", batch)
+    step("card", gpu_model, dev, batch)
+    card_launches = (corr.corr_lookup_kernel.launches,
+                     corr.corr_lookup_backward_kernel.launches)
+    if card_launches != expected:
+        raise AssertionError(f"{name} card train step: launches "
+                             f"{card_launches}, expected {expected}")
     (cl, names, cg, cs, cn), (gl, _, gg, gs, gn) = (step_out["cpu"],
                                                     step_out["card"])
     gmax = max(g.abs().max().item() for g in cg)
@@ -990,8 +1107,15 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
 
     bn_err = max(((gs[k] - cs[k]).abs().max().item() for k in cs),
                  default=0.0)
-    for label, grads in (("card", gg), ("CPU, input one rounding off",
-                                        step_out["cpu nudged"][2])):
+    loss_ok = abs(gl - cl) <= RTOL_LOSS * abs(cl)
+    bn_ok = bn_err <= ATOL_BN
+    grad_ok = glob_max <= GRAD_RTOL and glob_norm <= GRAD_RTOL
+    runs = [("card", gg)]
+    if not (loss_ok and bn_ok and grad_ok):
+        step("cpu nudged", cpu_model, "cpu", nudged)
+        runs.append(("CPU, input one rounding off",
+                     step_out["cpu nudged"][2]))
+    for label, grads in runs:
         ratios = per_tensor(grads)
         log(f"[4 card vs cpu] {name} train step, {label} against the CPU: "
             f"worst per-tensor max |dg| / max(max |g|, "
@@ -1005,13 +1129,13 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
         f"{cn:.6f}; the whole gradient: max |dg| / max |g| {glob_max:.2e}, "
         f"|dg| / |g| {glob_norm:.2e} (tolerance {GRAD_RTOL}); BN statistics "
         f"max |d| {bn_err:.2e} (tolerance {ATOL_BN})")
-    if not abs(gl - cl) <= RTOL_LOSS * abs(cl):
+    if not loss_ok:
         raise AssertionError(f"{name} card train step: loss {gl} against "
                              f"{cl}")
-    if not bn_err <= ATOL_BN:
+    if not bn_ok:
         raise AssertionError(f"{name} card train step: BN statistics "
                              f"{bn_err}")
-    if not (glob_max <= GRAD_RTOL and glob_norm <= GRAD_RTOL):
+    if not grad_ok:
         raise AssertionError(f"{name} card train step: gradient {glob_max}, "
                              f"{glob_norm}")
     return {"loss": [gl, cl], "grad_max_rel": glob_max,
@@ -1785,6 +1909,18 @@ def main(argv=None) -> int:
     for name, path in vb_train_paths.items():
         launches[path] = sum(vb["train"][name]["lookup"])
 
+    # ---------------------------------------------------------------- 15
+    t15 = time.perf_counter()
+    s13 = slice13_phase(torch, dev, tag)
+    log(f"[15] {time.perf_counter() - t15:.1f} s")
+    launches.update(s13["launches"])
+    s13_train_paths = {
+        name: (f"{name} train, {S13_TRAIN_STEPS} steps at {TRAIN_W}x"
+               f"{TRAIN_H}, batch {rec['batch']}")
+        for name, rec in s13["train"].items()}
+    for name, path in s13_train_paths.items():
+        launches[path] = sum(s13["train"][name]["lookup"])
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -1820,6 +1956,7 @@ def main(argv=None) -> int:
         "recurrent_pyramid_shapes": rp["kernels"]["corr_lookup"],
         "video_and_attention_shapes": va["kernels"]["corr_lookup"],
         "volume_and_backbone_shapes": vb["kernels"]["corr_lookup"],
+        "slice13_shapes": s13["kernels"]["corr_lookup"],
         "invalid_profiler_readings": [
             r for r in INVALID_READINGS if r["kernel"] == "corr_lookup"],
     }, {
@@ -1851,7 +1988,12 @@ def main(argv=None) -> int:
                check["launches"][1]
                for name, check in vb["train_step_card_vs_cpu"].items()},
             **{path: sum(vb["train"][name]["lookup_backward"])
-               for name, path in vb_train_paths.items()}),
+               for name, path in vb_train_paths.items()},
+            **{f"{name} train step at 128x160, 2 iterations":
+               check["launches"][1]
+               for name, check in s13["train_step_card_vs_cpu"].items()},
+            **{path: sum(s13["train"][name]["lookup_backward"])
+               for name, path in s13_train_paths.items()}),
         "max_abs_err": bwd_err,
         "max_abs_grad": bwd_gmax,
         "ms": bwd_ms,
@@ -1868,6 +2010,7 @@ def main(argv=None) -> int:
             va["kernels"]["corr_lookup_backward"],
         "volume_and_backbone_shapes":
             vb["kernels"]["corr_lookup_backward"],
+        "slice13_shapes": s13["kernels"]["corr_lookup_backward"],
         "profiler_readings_raft_train_shape": bwd_readings,
         "invalid_profiler_readings": [
             r for r in INVALID_READINGS
@@ -1894,6 +2037,8 @@ def main(argv=None) -> int:
     log(json.dumps({"volume_and_backbone": {k: v for k, v in vb.items()
                                             if k != "kernels"},
                     "card": tag}))
+    log(json.dumps({"slice13": {k: v for k, v in s13.items()
+                                if k != "kernels"}, "card": tag}))
     log(tag)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2395,6 +2540,24 @@ def conditioned_served(torch, name: str, images, args=None):
     return model
 
 
+def card_and_cpu(torch, name: str, images, served: bool = True):
+    """``name`` on the card at its registered depth, its seeded weights
+    conditioned there on ``images`` (``parity_weights``, and where
+    ``served`` ``damp_to_served_size``), and a copy of it on the CPU:
+    (card model, CPU model).  Conditioning on the card spares the CPU the
+    calibration forwards; the two models hold the same tensors either
+    way."""
+    import copy
+
+    import ptlflow_tpu_torch
+
+    gpu_model = ptlflow_tpu_torch.get_model(name)
+    parity_weights(torch, name, gpu_model, images)
+    if served:
+        damp_to_served_size(torch, name, gpu_model, images)
+    return gpu_model, copy.deepcopy(gpu_model).to("cpu")
+
+
 def check_flows(torch, name: str, out, shape) -> None:
     flows = out["flows"]
     if tuple(flows.shape) != shape:
@@ -2422,7 +2585,8 @@ def train_at_largest_batch(torch, dev, tag: str, model, tx, batch_sizes,
     Returns the per-step ms, loss and launches, the median of steps 2 on,
     samples/s, the peak memory and that above what was allocated before
     the first step, and the profile (``level_shapes(batch)``: the levels' (Q, H, W), whose dense
-    gradient sums it counts; by default RAFT's one 1/8 level)."""
+    gradient sums it counts; by default RAFT's one 1/8 level), none where
+    ``profile_runs`` is 0."""
     from ptlflow_tpu_torch.ops import correlation as corr
     from ptlflow_tpu_torch.parallel import train as ttrain
 
@@ -2485,9 +2649,10 @@ def train_at_largest_batch(torch, dev, tag: str, model, tx, batch_sizes,
     th, tw = -(-crop_h // 8), -(-crop_w // 8)
     shapes = ([(train["batch"] * th * tw, th, tw)] if level_shapes is None
               else level_shapes(train["batch"]))
-    train["profile"] = profile_train_step(
+    train["profile"] = (profile_train_step(
         torch, step, state, batches[-1], shapes, tag,
         train["median_step_ms"], label=label, phase=phase, runs=profile_runs)
+        if profile_runs else None)
     log(f"[{phase} train] [{tag}] {label} {crop_w}x{crop_h}, batch "
         f"{train['batch']}, {depth} steps of the decoder, fp32 (TF32 off): "
         f"{train['median_step_ms']:.3f} ms per step (median of steps "
@@ -2501,38 +2666,40 @@ def train_at_largest_batch(torch, dev, tag: str, model, tx, batch_sizes,
 def time_forward(torch, model, images, label: str, tag: str, depth: str,
                  phase: int, out: dict, kernel_names=None,
                  reps: int = 10, warmups: int = 3,
-                 profiled: bool = True) -> None:
+                 profiled: bool = True, runs: int = 3) -> None:
     """The eval forward of ``images``: ``warmups`` warm-ups, then the
-    median of 3 runs of ``reps`` forwards by CUDA events; the peak memory of
-    one forward, and above what was allocated before it (the model, and
-    what earlier phases still hold); where ``profiled``, a profile
+    median of ``runs`` runs of ``reps`` forwards by CUDA events; the peak
+    memory of
+    those forwards (each frees what it allocates), and above what was
+    allocated before them (the model, and what earlier phases still hold);
+    where ``profiled``, a profile
     (``profile_forward``, with the kernel times by ``kernel_names``).
     Written into ``out`` under ``label``."""
     for _ in range(warmups):
         model({"images": images})
-    runs = sorted(timed_ms(torch, lambda: model({"images": images}), reps)
-                  for _ in range(3))
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    model({"images": images})
+    times = sorted(timed_ms(torch, lambda: model({"images": images}), reps)
+                   for _ in range(runs))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    out["forward_ms"][label] = runs[1]
-    out["forward_runs_ms"][label] = runs
+    median = times[len(times) // 2]
+    out["forward_ms"][label] = median
+    out["forward_runs_ms"][label] = times
     out["peak_gib"][label] = peak / 2 ** 30
     out["forward_gib"][label] = (peak - base) / 2 ** 30
     h, w = images.shape[-2:]
     log(f"[{phase} forward] [{tag}] {label}, {w}x{h}, {depth}: "
-        f"{runs[1]:.3f} ms/forward, {1e3 / runs[1]:.2f} fps (median of 3 "
-        f"runs of {reps} forwards: {', '.join(f'{r:.3f}' for r in runs)} "
-        f"ms); "
+        f"{median:.3f} ms/forward, {1e3 / median:.2f} fps (median of "
+        f"{runs} runs of {reps} forwards: "
+        f"{', '.join(f'{r:.3f}' for r in times)} ms); "
         f"peak {peak / 2 ** 30:.2f} GiB allocated, "
         f"{(peak - base) / 2 ** 30:.2f} GiB above the "
         f"{base / 2 ** 30:.2f} GiB allocated before the forward")
     if profiled:
         out["profile"][label] = profile_forward(
-            torch, model, images, label, tag, runs[1], phase=phase,
+            torch, model, images, label, tag, median, phase=phase,
             kernel_names=kernel_names)
 
 
@@ -2700,7 +2867,7 @@ def flowformer_phase(torch, dev, tag: str, ff_lookup) -> dict:
                                pct_start=0.05, grad_clip=1.0)
     out["train"] = train = train_at_largest_batch(
         torch, dev, tag, model, tx, FF_TRAIN_BATCHES, FF_TRAIN_STEPS,
-        FF_DEPTH, "flowformer", 10)
+        FF_DEPTH, "flowformer", 10, profile_runs=0)
     th, tw = -(-TRAIN_H // 8), -(-TRAIN_W // 8)
     del model
 
@@ -2782,7 +2949,7 @@ def sk_family_phase(torch, dev, tag: str) -> dict:
         out["launches"][f"{name} serve, 3 pairs warm-started"] = n
 
         time_forward(torch, model, x["images"], f"{name} fp32", tag,
-                     f"{depth} steps", 11, out, named)
+                     f"{depth} steps", 11, out, named, reps=5, warmups=2)
         if name == "memflow":
             # the memory stream at full size: 4 pairs with meta
             corr.corr_lookup_kernel.launches = 0
@@ -2806,7 +2973,7 @@ def sk_family_phase(torch, dev, tag: str) -> dict:
             if not cast_to_bf16(cast, name):
                 raise AssertionError(f"{name}: not on the allow-list")
             time_forward(torch, cast, x["images"], f"{name} bf16 cast", tag,
-                         f"{depth} steps", 11, out, named)
+                         f"{depth} steps", 11, out, named, reps=5, warmups=2)
             del cast
         log(f"[11 serve] {name}: {time.perf_counter() - t0:.1f} s with its "
             f"timing")
@@ -2859,7 +3026,7 @@ def sk_family_phase(torch, dev, tag: str) -> dict:
                                pct_start=0.05, grad_clip=1.0)
     out["train"] = train_at_largest_batch(
         torch, dev, tag, model, tx, SK_TRAIN_BATCHES, SK_TRAIN_STEPS,
-        dict(SK_SERVE)["memflow"], "memflow", 11)
+        dict(SK_SERVE)["memflow"], "memflow", 11, profile_runs=0)
     del model
     return out
 
@@ -2959,13 +3126,14 @@ def recurrent_pyramid_phase(torch, dev, tag: str) -> dict:
                               (1, 1, 2, H, W), 12)
         out["launches"][f"{name} serve, 3 pairs warm-started"] = n
         time_forward(torch, model, x["images"], f"{name} fp32", tag,
-                     f"{depth} lookups", 12, out, named)
+                     f"{depth} lookups", 12, out, named, reps=5, warmups=2)
         if name == "dpflow":
             cast = copy.deepcopy(model)
             if not cast_to_bf16(cast, name):
                 raise AssertionError(f"{name}: not on the allow-list")
             time_forward(torch, cast, x["images"], f"{name} bf16 cast", tag,
-                         f"{depth} lookups", 12, out, named)
+                         f"{depth} lookups", 12, out, named, reps=5,
+                         warmups=2)
             del cast
             # Spring's size: 4 levels, stride 64
             spring = smooth_frames(52, SPRING_H, SPRING_W, 3, shift=(3, 2))
@@ -3049,7 +3217,7 @@ def recurrent_pyramid_phase(torch, dev, tag: str) -> dict:
             torch, dev, tag, model, tx,
             tuple(b for b in (batch, 4, 2) if b <= batch), RP_TRAIN_STEPS,
             12, name, 12, size=(RP_TRAIN_H, RP_TRAIN_W),
-            level_shapes=level_shapes, profile_runs=1)
+            level_shapes=level_shapes, profile_runs=0)
         log(f"[12 train] {name}: {time.perf_counter() - t0:.1f} s with its "
             f"profile")
         del model, tx
@@ -3129,14 +3297,14 @@ def video_and_attention_phase(torch, dev, tag: str) -> dict:
         out["launches"][f"{name} serve, 3 windows"] = n
         time_forward(torch, model, x["images"], f"{name} fp32", tag,
                      f"{depth} lookups", 13, out, named.get(name, depthwise),
-                     reps=5 if name in ("videoflow_mof", "streamflow")
-                     else 10)
+                     reps=5, warmups=2)
         if name == "craft":
             cast = copy.deepcopy(model)
             if not cast_to_bf16(cast, name):
                 raise AssertionError(f"{name}: not on the allow-list")
             time_forward(torch, cast, x["images"], f"{name} bf16 cast", tag,
-                         f"{depth} lookups", 13, out, named[name])
+                         f"{depth} lookups", 13, out, named[name], reps=5,
+                         warmups=2)
             del cast
         log(f"[13 serve] {name}: {time.perf_counter() - t0:.1f} s with its "
             f"timing")
@@ -3146,11 +3314,9 @@ def video_and_attention_phase(torch, dev, tag: str) -> dict:
     t0 = time.perf_counter()
     seq = smooth_frames(7, 256, 320, 5, shift=(3, 2))
     for name, depth, window in VA_SERVE:
-        cpu_model = ptlflow_tpu_torch.get_model(name, device="cpu")
-        condition_video_and_attention(torch, name, cpu_model)
-        x = IOAdapter(cpu_model).prepare_inputs(seq[:window])
-        gpu_model = ptlflow_tpu_torch.get_model(name)
-        gpu_model.load_state_dict(cpu_model.state_dict())
+        x = IOAdapter(device="cpu").prepare_inputs(seq[:window])
+        gpu_model, cpu_model = card_and_cpu(torch, name, x["images"].to(dev),
+                                            served=False)
         want = cpu_model(x)
         got = gpu_model({"images": x["images"].to(dev)})
         diff = max((got[k].cpu() - want[k]).abs().max().item()
@@ -3207,7 +3373,7 @@ def video_and_attention_phase(torch, dev, tag: str) -> dict:
                                    grad_clip=1.0)
         out["train"][name] = train_at_largest_batch(
             torch, dev, tag, model, tx, batches, VA_TRAIN_STEPS, depth, name,
-            13, level_shapes=shapes, profile_runs=1, frames=frames_,
+            13, level_shapes=shapes, profile_runs=0, frames=frames_,
             launches=launches)
         log(f"[13 train] {name}: {time.perf_counter() - t0:.1f} s with its "
             f"profile")
@@ -3331,12 +3497,9 @@ def volume_and_backbone_phase(torch, dev, tag: str) -> dict:
     for name, depth, window, _, _ in VB_SERVE:
         if name in out["card_vs_cpu_px"]:
             continue
-        cpu_model = ptlflow_tpu_torch.get_model(name, device="cpu")
-        x = IOAdapter(cpu_model).prepare_inputs(seq[:window])
-        parity_weights(torch, name, cpu_model, x["images"])
-        damp_to_served_size(torch, name, cpu_model, x["images"])
-        gpu_model = ptlflow_tpu_torch.get_model(name)
-        gpu_model.load_state_dict(cpu_model.state_dict())
+        x = IOAdapter(device="cpu").prepare_inputs(seq[:window])
+        gpu_model, cpu_model = card_and_cpu(torch, name,
+                                            x["images"].to(dev))
         want = cpu_model(x)["flows"]
         got = gpu_model({"images": x["images"].to(dev)})["flows"].cpu()
         diff = (got - want).abs().max().item()
@@ -3448,12 +3611,227 @@ def volume_and_backbone_phase(torch, dev, tag: str) -> dict:
                   else pyramid_shapes(th, tw, 2 if name == "csflow" else 1))
         out["train"][name] = train_at_largest_batch(
             torch, dev, tag, model, tx, VB_TRAIN_BATCHES, VB_TRAIN_STEPS,
-            depth, name, 14, level_shapes=shapes, profile_runs=1,
+            depth, name, 14, level_shapes=shapes, profile_runs=0,
             launches=(depth, depth))
         log(f"[14 train] {name}: {time.perf_counter() - t0:.1f} s with its "
             f"profile")
         del model, tx
         torch.cuda.empty_cache()
+    return out
+
+
+def slice13_phase(torch, dev, tag: str) -> dict:
+    """Phase 15: WAFT (dav2_a1, dav2_a2, twins_a2), FlowSeek (t, m), DIP,
+    Flow1D and GMFlowNet (+mix) on the card at their registered depths
+    (S13_SERVE), fp32, TF32 off.  Serves 3 consecutive pairs of one
+    sequence through each (``flow1d`` and ``gmflownet(_mix)`` each
+    warm-started from the last's ``flow_small``; ``flow1d`` also at
+    1920x1080), counting the lookup launches of each forward (4 for
+    FlowSeek, 32 for GMFlowNet, 0 elsewhere) and asserting no autograd
+    graph; times and profiles each fp32 forward with its peak memory (at
+    1080p one timed forward, and the profile of one update step),
+    and the ``validate --bf16`` casts of the allow-list's names
+    (S13_BF16);
+    holds the card against the CPU at 256x320 for every name (GMFlowNet on
+    frames shifted by whole feature pixels, printing how many of its
+    initial matches differ); one train step at 128x160 card against CPU
+    (S13_STEP_CHECK); both kernels against their plain versions and timed
+    at GMFlowNet's training pyramid; and trains S13_TRAIN at TRAIN_H x
+    TRAIN_W at the first of S13_TRAIN_BATCHES that fits (unprofiled)."""
+    import copy
+
+    import ptlflow_tpu_torch
+    from ptlflow_tpu_torch.ops import correlation as corr
+    from ptlflow_tpu_torch.parallel import train as ttrain
+    from ptlflow_tpu_torch.scripts.validate import cast_to_bf16
+    from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+
+    out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
+           "peak_gib": {}, "forward_gib": {}, "launches": {},
+           "card_vs_cpu_px": {}, "match_differences": {}}
+    gemm = ("gemm", ("fprop", "dgrad", "wgrad", "conv", "implicit"))
+    # the ViTs' fused attention (scaled_dot_product_attention), the GEMMs
+    # of the other attentions and of the linear layers, the softmaxes
+    named = {"GEMMs": gemm, "fused attention": "attention",
+             "softmax": "softmax"}
+    # the models whose flows start elsewhere than at the flow head's steps:
+    # DIP at a random field of up to 256 px, GMFlowNet at its matches
+    undamped = ("dip", "gmflownet", "gmflownet_mix")
+    model, built = None, None
+    for name, depth, warm, (h, w) in S13_SERVE:
+        t0 = time.perf_counter()
+        frames = smooth_frames(151, h, w, 4, shift=(2, 1))
+        if name != built:  # flow1d serves two sizes on one model
+            del model
+            torch.cuda.empty_cache()
+            model = ptlflow_tpu_torch.get_model(name)
+            calib = IOAdapter(model).prepare_inputs(
+                smooth_frames(152, H, W, 2, shift=(2, 1)))["images"]
+            parity_weights(torch, name, model, calib)
+            if name not in undamped:
+                damp_to_served_size(torch, name, model, calib)
+            built = name
+        n, x = serve_sequence(torch, name, model, frames, depth,
+                              (1, 1, 2, h, w), 15, window=2, warm=warm)
+        key = f"{name} serve at {w}x{h}, 3 pairs"
+        out["launches"][key] = n
+        if n != 3 * depth:
+            raise AssertionError(f"{key}: {n} lookup launches")
+        big = (h, w) == (SPRING_H, SPRING_W)
+        label = f"{name} fp32" + (" 1080p" if big else "")
+        # flow1d at 1080p: ~8 s a forward, a million kernel launches (cuDNN
+        # picks an FFT convolution of GEMVs for the motion encoder's 7x7
+        # 2->128 conv), which the profiler cannot digest in the time
+        # budget: the served pairs are the warm-ups, one timed forward,
+        # and the profile is of one update step
+        time_forward(torch, model, x["images"], label, tag,
+                     f"{depth} lookups", 15, out, named,
+                     reps=1 if big else 5, warmups=0 if big else 2,
+                     profiled=not big, runs=1 if big else 3)
+        if big:
+            # the profile of one update step at 1080p's 1/8 level (136x240;
+            # the correlation windows and the state random), as phase 12
+            # profiles dpflow's
+            g = torch.Generator().manual_seed(15)
+            h8, w8 = -(-h // 8), -(-w // 8)
+            step_in = [torch.randn(1, c, h8, w8, generator=g).to(dev)
+                       for c in (128, 128, 2 * (2 * model.corr_radius + 1),
+                                 2)]
+
+            def update_step(_):
+                return model.update_block(*step_in)
+
+            with torch.no_grad():
+                step_ms = timed_ms(torch, lambda: update_step(None), 3)
+                step_label = f"{name} update step at 1080p's 1/8 level"
+                out["forward_ms"][step_label] = step_ms
+                out["profile"][step_label] = profile_forward(
+                    torch, update_step, None, step_label, tag, step_ms,
+                    phase=15, kernel_names=named)
+        if name in S13_BF16:
+            cast = copy.deepcopy(model)
+            if not cast_to_bf16(cast, name):
+                raise AssertionError(f"{name}: not on the allow-list")
+            time_forward(torch, cast, x["images"], f"{name} bf16 cast", tag,
+                         f"{depth} lookups", 15, out, named, reps=5,
+                         warmups=2)
+            del cast
+        log(f"[15 serve] {name} at {w}x{h}: {time.perf_counter() - t0:.1f} "
+            f"s with its timing")
+        del x
+    del model
+    torch.cuda.empty_cache()
+
+    # card against CPU at 256x320, the registered depths
+    t0 = time.perf_counter()
+    for name in S13_NAMES:
+        shift = S13_MATCH_SHIFT if name.startswith("gmflownet") else (3, 2)
+        pair = smooth_frames(7, 256, 320, 2, shift=shift)
+        x = IOAdapter(device="cpu").prepare_inputs(pair)
+        gpu_model, cpu_model = card_and_cpu(torch, name, x["images"].to(dev),
+                                            served=name not in undamped)
+        if name.startswith("gmflownet"):
+            # the matches alone: no iteration
+            iters = cpu_model.iters
+            cpu_model.iters = gpu_model.iters = 0
+            cm = cpu_model(x)["flow_small"]
+            gm = gpu_model({"images": x["images"].to(dev)})[
+                "flow_small"].cpu()
+            cpu_model.iters = gpu_model.iters = iters
+            moved = ((cm - gm).abs().amax(dim=1) > 0.5).sum().item()
+            out["match_differences"][name] = moved
+            log(f"[15 card vs cpu] {name} 256x320: {moved} of "
+                f"{cm[0, 0].numel()} initial matches differ between the "
+                f"card and the CPU ({(cm != 0).any(dim=1).float().mean():.1%} "
+                f"of the pixels matched away from themselves)")
+        want = cpu_model(x)["flows"]
+        got = gpu_model({"images": x["images"].to(dev)})["flows"].cpu()
+        diff = (got - want).abs().max().item()
+        out["card_vs_cpu_px"][name] = diff
+        log(f"[15 card vs cpu] {name} 256x320: max |dflow| {diff:.3e} px "
+            f"(flow up to {want.abs().max().item():.2f} px, tolerance "
+            f"{ATOL_CARD_CPU_PX} px)")
+        if not diff <= ATOL_CARD_CPU_PX:
+            raise AssertionError(f"{name}: card and CPU differ by {diff} px")
+        del cpu_model, gpu_model
+    log(f"[15 card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # one train step card against CPU at 128x160, 2 iterations
+    t0 = time.perf_counter()
+    out["train_step_card_vs_cpu"] = {
+        name: train_step_card_vs_cpu(torch, name, dev, {"iters": 2}, launches,
+                                     batch_seed=seed)
+        for name, launches, seed in S13_STEP_CHECK}
+    log(f"[15 train step card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # training at 368x496 at the first batch that fits; gmflownet's
+    # pyramid pools its volume: 46x62, 23x31, 11x15, 5x7
+    th, tw = -(-TRAIN_H // 8), -(-TRAIN_W // 8)
+
+    def gm_shapes(b):
+        return [(b * th * tw, th >> k, tw >> k) for k in range(4)]
+
+    out["train"] = {}
+    for name, args, launches in S13_TRAIN:
+        t0 = time.perf_counter()
+        model = ptlflow_tpu_torch.get_model(name, args=args)
+        batch = train_batch(torch, 15, 2, TRAIN_H, TRAIN_W, dev)
+        parity_weights(torch, name, model, batch["images"])
+        del batch
+        tx = ttrain.make_optimizer(lr=4e-4, wdecay=1e-4, total_steps=120000,
+                                   pct_start=0.05, grad_clip=1.0)
+        # unprofiled: the profiler's digest of a 32-iteration step's ~10^5
+        # kernel records takes tens of seconds of the time budget
+        out["train"][name] = train_at_largest_batch(
+            torch, dev, tag, model, tx, S13_TRAIN_BATCHES, S13_TRAIN_STEPS,
+            launches[0], name, 15,
+            level_shapes=gm_shapes if launches[0] else (lambda b: []),
+            profile_runs=0, launches=launches)
+        log(f"[15 train] {name}: {time.perf_counter() - t0:.1f} s with its "
+            f"profile")
+        del model, tx
+        torch.cuda.empty_cache()
+
+    # both kernels at gmflownet's training pyramid, at the batch that fit
+    t0 = time.perf_counter()
+    b = out["train"]["gmflownet"]["batch"]
+    flush = flushes(torch, dev)["dirty"]
+    g = torch.Generator().manual_seed(15)
+    f1 = torch.randn(b, 256, th, tw, generator=g).to(dev)
+    f2 = torch.randn(b, 256, th, tw, generator=g).to(dev) + 0.5 * f1
+    levels = corr.pool_volume_pyramid(
+        corr.all_pairs_correlation(f1, f2).reshape(b * th * tw, th, tw), 4)
+    del f1, f2
+    coords = (torch.rand(b, 2, th, tw, generator=g).to(dev) * 1.2 - 0.1) \
+        * torch.tensor([tw, th], device=dev).view(1, 2, 1, 1)
+    label = f"gmflownet train Q={b * th * tw}"
+    got = corr.corr_lookup_kernel(levels, coords, 4)
+    err = (got - corr.corr_pyramid_lookup_plain(levels, coords, 4)).abs(
+        ).max().item()
+    log(f"[15 kernel vs plain] {label}, levels "
+        f"{[tuple(p.shape[1:]) for p in levels]}, r=4, fp32: max |err| "
+        f"{err:.3e} (tolerance {ATOL_FP32})")
+    if not err <= ATOL_FP32:
+        raise AssertionError(f"{label}: lookup |err| {err}")
+    grad = torch.randn(got.shape, generator=g).to(dev)
+    out["kernels"] = {
+        "corr_lookup": {label: lookup_record(torch, levels, coords, 4, err,
+                                             flush)},
+        "corr_lookup_backward": {label: backward_record(
+            torch, levels, coords, grad, 4, flush, label)}}
+    for kname, recs in out["kernels"].items():
+        rec = recs[label]
+        log(f"[15 kernels] [{tag}] {kname} at {label}, levels "
+            f"{rec['levels']}, r=4, fp32, L2 flushed per launch: "
+            f"{rec['ms']:.4f} ms by CUDA events, "
+            f"{fmt_ms(rec['profiler_ms'])} device time by the profiler; "
+            f"plain {rec['plain_ms']:.4f} ms; library "
+            f"{rec['library_ms']:.4f} ms; bound {rec['bound_ms']:.5f} ms "
+            f"by {rec['bound_by']} ({rec['bound_bytes']} bytes), kernel "
+            f"at {rec['bound_ms'] / rec['ms']:.1%} of it")
+    del got, grad, coords, levels
+    torch.cuda.empty_cache()
+    log(f"[15 kernels] {time.perf_counter() - t0:.1f} s")
     return out
 
 

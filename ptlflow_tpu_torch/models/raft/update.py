@@ -127,10 +127,14 @@ class SmallUpdateBlock(nn.Module):
 
 
 class BasicUpdateBlock(nn.Module):
+    """``cor_planes``, where given, is the correlation width in place of
+    the lookup's (Flow1D's 2 x 65 channels of 1-D windows)."""
+
     def __init__(self, corr_levels, corr_radius, hidden_dim=128,
-                 input_dim=128):
+                 input_dim=128, cor_planes=None):
         super().__init__()
-        self.encoder = BasicMotionEncoder(corr_levels, corr_radius)
+        self.encoder = BasicMotionEncoder(corr_levels, corr_radius,
+                                          cor_planes)
         self.gru = SepConvGRU(hidden_dim=hidden_dim,
                               input_dim=128 + hidden_dim)
         self.flow_head = FlowHead(hidden_dim, hidden_dim=256)

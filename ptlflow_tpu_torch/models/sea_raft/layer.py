@@ -18,11 +18,11 @@ from ... import nn as pnn
 
 
 def conv1x1(in_planes: int, out_planes: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(in_planes, out_planes, 1, stride=stride, padding=0)
+    return pnn.CastConv2d(in_planes, out_planes, 1, stride=stride, padding=0)
 
 
 def conv3x3(in_planes: int, out_planes: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(in_planes, out_planes, 3, stride=stride, padding=1)
+    return pnn.CastConv2d(in_planes, out_planes, 3, stride=stride, padding=1)
 
 
 class ConvNextBlock(nn.Module):
@@ -84,13 +84,16 @@ class BasicBlock(nn.Module):
 
 
 class ResNetFPN(nn.Module):
-    """ResNet18- or ResNet34-style encoder, output at 1/8 resolution."""
+    """ResNet18- or ResNet34-style encoder, output at 1/8 resolution.  Its
+    convolutions cast their weights to their input's dtype (FlowSeek's
+    bf16 weight cast)."""
 
     def __init__(self, block_dims: Sequence[int], initial_dim: int,
                  pretrain: str = "resnet18", input_dim: int = 3,
                  output_dim: int = 256):
         super().__init__()
-        self.conv1 = nn.Conv2d(input_dim, initial_dim, 7, stride=2, padding=3)
+        self.conv1 = pnn.CastConv2d(input_dim, initial_dim, 7, stride=2,
+                                    padding=3)
         self.bn1 = pnn.BatchNorm2d(initial_dim)
         n_block = {"resnet18": [2, 2, 2], "resnet34": [3, 4, 6]}[pretrain]
         in_planes = initial_dim

@@ -79,16 +79,17 @@ def laplace_mixture_nll(flow_pred: torch.Tensor, info_pred: torch.Tensor,
 
 
 class BasicMotionEncoder(nn.Module):
-    """SEA-RAFT's motion encoder.  The correlation convolutions run in the
-    correlation's dtype (``CastConv2d``), as in the JAX package."""
+    """SEA-RAFT's motion encoder.  Its convolutions run in their input's
+    dtype (``CastConv2d``), as in the JAX package: the correlation ones in
+    the correlation's."""
 
     def __init__(self, corr_channel: int, dim: int = 128):
         super().__init__()
         self.convc1 = CastConv2d(corr_channel, dim * 2, 1, padding=0)
         self.convc2 = CastConv2d(dim * 2, dim + dim // 2, 3, padding=1)
-        self.convf1 = nn.Conv2d(2, dim, 7, padding=3)
-        self.convf2 = nn.Conv2d(dim, dim // 2, 3, padding=1)
-        self.conv = nn.Conv2d(dim * 2, dim - 2, 3, padding=1)
+        self.convf1 = CastConv2d(2, dim, 7, padding=3)
+        self.convf2 = CastConv2d(dim, dim // 2, 3, padding=1)
+        self.conv = CastConv2d(dim * 2, dim - 2, 3, padding=1)
 
     def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
         cor = torch.relu(self.convc2(torch.relu(self.convc1(corr))))

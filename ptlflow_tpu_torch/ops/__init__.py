@@ -6,7 +6,8 @@ from .correlation import (CorrBlock, all_pairs_correlation,  # noqa: F401
                           corr_pyramid_lookup_backward_plain,
                           corr_pyramid_lookup_plain, make_corr_lookup,
                           pool_volume_pyramid)
-from .grid_sample import bilinear_sampler, interpolate  # noqa: F401
+from .grid_sample import (bilinear_sampler, interpolate,  # noqa: F401
+                          interpolate_bicubic)
 from .resize import InputPadder, InputScaler  # noqa: F401
 from .upsample import (convex_upsample, convex_upsample_data,  # noqa: F401
                        upflow)

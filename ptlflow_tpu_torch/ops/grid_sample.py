@@ -1,8 +1,12 @@
-"""Resampling of NCHW tensors (``ptlflow_tpu/ops/grid_sample.py``)."""
+"""Resampling of NCHW tensors (``ptlflow_tpu/ops/grid_sample.py``): the
+bilinear ``interpolate``, the general ``grid_sample`` (zero or border
+padding, either ``align_corners``), the pixel-coordinate
+``bilinear_sampler`` and ``interpolate_bicubic`` with explicit scale
+factors."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +30,23 @@ def interpolate(x: torch.Tensor, size: Tuple[int, int],
     return y.to(x.dtype)
 
 
+def grid_sample(img: torch.Tensor, grid: torch.Tensor,
+                padding_mode: str = "zeros",
+                align_corners: bool = False) -> torch.Tensor:
+    """Bilinear ``F.grid_sample`` of ``img`` (N, C, H, W) at ``grid`` (N,
+    Ho, Wo, 2; normalised x then y), as the JAX package's ``grid_sample``:
+    zero or border padding, either ``align_corners``, computed in float32
+    at least (a reduced-precision image is sampled in float32 and only the
+    output cast back to its dtype)."""
+    if padding_mode not in ("zeros", "border"):
+        raise NotImplementedError(padding_mode)
+    compute = torch.promote_types(img.dtype, torch.float32)
+    out = F.grid_sample(img.to(compute), grid.to(compute), mode="bilinear",
+                        padding_mode=padding_mode,
+                        align_corners=align_corners)
+    return out.to(img.dtype)
+
+
 def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor,
                      mask: bool = False):
     """Sample ``img`` (N, C, H, W) bilinearly at pixel coordinates
@@ -44,11 +65,59 @@ def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor,
     xgrid = 2.0 * c[:, 0] / (w - 1) - 1.0
     ygrid = 2.0 * c[:, 1] / (h - 1) - 1.0
     grid = torch.stack([xgrid, ygrid], dim=-1)
-    compute = torch.promote_types(img.dtype, cdtype)
-    out = F.grid_sample(img.to(compute), grid.to(compute), mode="bilinear",
-                        padding_mode="zeros", align_corners=True)
+    out = grid_sample(img.to(torch.promote_types(img.dtype, cdtype)), grid,
+                      align_corners=True)
     out = out.to(img.dtype)
     if mask:
         m = (xgrid > -1) & (ygrid > -1) & (xgrid < 1) & (ygrid < 1)
         return out, m[:, None].to(coords.dtype)
     return out
+
+
+def _cubic_weights(t: torch.Tensor, a: float = -0.75):
+    """The cubic-convolution weights of the 4 taps at distances (1+t, t,
+    1-t, 2-t) from a fractional offset ``t`` (torch's bicubic kernel)."""
+    def near(x):  # |x| <= 1
+        return (a + 2) * x ** 3 - (a + 3) * x ** 2 + 1
+
+    def far(x):  # 1 < |x| < 2
+        return a * x ** 3 - 5 * a * x ** 2 + 8 * a * x - 4 * a
+
+    return (far(t + 1.0), near(t), near(1.0 - t), far(2.0 - t))
+
+
+def interpolate_bicubic(x: torch.Tensor, scale: Tuple[float, float],
+                        size: Optional[Tuple[int, int]] = None
+                        ) -> torch.Tensor:
+    """``F.interpolate(mode="bicubic", align_corners=False)`` of an NCHW
+    tensor with the EXPLICIT scale factors ``scale`` (scale_h, scale_w):
+    output pixel ``d`` reads source position (d + 0.5) / scale - 0.5, even
+    where ``size`` overrides the output size floor(in * scale), as DINOv2's
+    position-embedding resize needs.  The taps clamp at the edges; computed
+    in float32 at least and returned in the input's dtype (the JAX
+    package's ``interpolate_bicubic``)."""
+    h, w = x.shape[-2:]
+    sh, sw = scale
+    oh = size[0] if size is not None else int(h * sh)
+    ow = size[1] if size is not None else int(w * sw)
+    compute = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(compute)
+
+    def taps(n_out: int, n_in: int, s: float):
+        pos = (torch.arange(n_out, dtype=compute, device=x.device) + 0.5) / s
+        pos = pos - 0.5
+        p0 = torch.floor(pos)
+        weights = _cubic_weights(pos - p0)
+        idx = [(p0.long() + (i - 1)).clamp(0, n_in - 1) for i in range(4)]
+        return idx, weights
+
+    yi, wy = taps(oh, h, sh)
+    xi, wx = taps(ow, w, sw)
+    rows = 0.0
+    for i in range(4):
+        r = xf.index_select(-2, yi[i])
+        cols = 0.0
+        for j in range(4):
+            cols = cols + r.index_select(-1, xi[j]) * wx[j]
+        rows = rows + cols * wy[i][:, None]
+    return rows.to(x.dtype)

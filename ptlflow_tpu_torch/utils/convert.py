@@ -42,8 +42,9 @@ LEAF_TRANSPOSES = {"init_hidden_state": (0, 1, 4, 2, 3)}
 
 # Buffers that the JAX package computes where the reference stores them:
 # GMA's relative positions, LCV-RAFT's identity (ptlflow_tpu/models/lcv/
-# lcv_raft.py:45-48).
-STATIC_BUFFERS = ("rel_ind", "eye")
+# lcv_raft.py:45-48), GMFlowNet's POLA bias index
+# (ptlflow_tpu/models/gmflownet/pola.py:114-120).
+STATIC_BUFFERS = ("rel_ind", "eye", "relative_position_index")
 
 # Prefixes under which the reference nests the whole network and the JAX
 # package's from_torch strips (MemFlow's ``network.``,

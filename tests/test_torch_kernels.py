@@ -362,6 +362,42 @@ def test_kernels_at_memfof_and_csflow_shapes_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flowseek_t", "gmflownet"])
+def test_lookup_at_flowseek_and_gmflownet_calls_on_card(name):
+    """The lookup as FlowSeek and GMFlowNet prepare it, on their pyramids
+    of a 1024x436 pair (a 55x128 map, Q = 7040, 4 levels, r = 4): FlowSeek
+    builds the levels from 384-channel features pooled (``CorrBlock``'s
+    pyramid), GMFlowNet pools its float32 all-pairs volume
+    (``pool_volume_pyramid``).  The kernel within 1e-5 of its plain
+    version, the backward (GMFlowNet's train step) within 1e-5 of the
+    largest gradient."""
+    dev = _card_or_skip()
+    rng = np.random.RandomState(87)
+    f1, f2 = (torch.from_numpy(rng.randn(1, 384, 55, 128).astype(
+        np.float32) / 20).to(dev) for _ in range(2))
+    if name == "flowseek_t":
+        pyr = corr.build_corr_pyramid(f1, f2, 4)
+    else:
+        volume = corr.all_pairs_correlation(f1, f2)
+        pyr = corr.pool_volume_pyramid(volume.reshape(55 * 128, 55, 128), 4)
+    c = torch.from_numpy(((rng.rand(1, 2, 55, 128) * 1.4 - 0.2) * np.array(
+        [128, 55])[None, :, None, None]).astype(np.float32)).to(dev)
+    before = corr.corr_lookup_kernel.launches
+    got = corr.make_corr_lookup(pyr, 4)(c)
+    assert corr.corr_lookup_kernel.launches == before + 1
+    assert got.shape == (1, 324, 55, 128)
+    torch.testing.assert_close(got, corr.corr_pyramid_lookup_plain(pyr, c, 4),
+                               rtol=0, atol=1e-5)
+    grad = torch.randn_like(got)
+    shapes = _shapes(pyr)
+    want = corr.corr_pyramid_lookup_backward_plain(grad, c, shapes, 4)
+    gmax = max(w.abs().max().item() for w in want)
+    for a, b in zip(corr.corr_lookup_backward_kernel(grad, c, shapes, 4),
+                    want):
+        assert (a - b).abs().max().item() <= 1e-5 * gmax
+
+
+@pytest.mark.cuda
 def test_softsplat_average_on_card_matches_cpu():
     """SplatFlow's splat of 128 channels at its 1/8 KITTI shape (47x156)
     on the card against the CPU: within 1e-5 (float atomics add in no

@@ -21,35 +21,38 @@ from tests.test_torch_lcv import ITERS, H, W, build
 from tests.test_torch_train import bn_stats, nhwc, synthetic_batch
 
 
-def jax_step(jmodel, batch):
+def jax_step(jmodel, batch, frozen=()):
     """``jax.value_and_grad`` of the JAX package's train-step loss
     (``ptlflow_tpu/parallel/train.py``: the training forward on the
     trainable and state trees, ``SequenceLoss``), with the new BatchNorm
-    statistics and the flow predictions as its aux."""
+    statistics and the flow predictions as its aux; the subtrees under
+    ``frozen`` prefixes are state."""
     def loss_and_updates(trainable, bn_state, jbatch):
         full = jnn.merge_params(jnn.tree_copy(trainable),
                                 jnn.tree_copy(bn_state))
         outputs = jmodel.forward(full, jbatch, training=True)
         loss = jmodel.loss_fn(outputs, jbatch)
-        _, new_state = jnn.split_trainable(full, ())
+        _, new_state = jnn.split_trainable(full, frozen)
         return loss, (new_state, outputs["flow_preds"])
 
-    trainable, state = jnn.split_trainable(jmodel.params, ())
+    trainable, state = jnn.split_trainable(jmodel.params, frozen)
     return jax.jit(jax.value_and_grad(loss_and_updates, has_aux=True))(
         trainable, state, {k: jnp.asarray(v) for k, v in batch.items()})
 
 
 def assert_step_matches(tmodel, batch, jloss, jgrads, jstate=None,
-                        jpreds=None):
+                        jpreds=None, frozen=()):
     """The port's step against the JAX one: the predictions within 5e-3
     px, the loss within 1e-5 relative, the BatchNorm statistics within
     1e-5, and every parameter's gradient within 1e-3 of its tensor's
     largest, or within 1e-6 of the model's largest gradient where both
     hold only rounding (the relative-position tables that GMA's content
-    attention never reads, biases that feed a norm)."""
+    attention never reads, biases that feed a norm).  The tensors under
+    ``frozen`` prefixes are left out of the step, as the JAX package's
+    ``jax_step(..., frozen)`` leaves them out."""
     want_grads = state_dict_from_jax(
         jax.tree_util.tree_map(np.asarray, jgrads), tmodel)
-    tparams, _ = tnn.split_trainable(tmodel)
+    tparams, _ = tnn.split_trainable(tmodel, frozen)
     assert set(tparams) <= set(want_grads)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     if jpreds is not None:

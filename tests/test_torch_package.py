@@ -72,33 +72,42 @@ def test_port_sources_import_no_jax():
     assert not offenders
 
 
-PORTED = ["craft", "csflow", "dpflow", "flow_anything", "flowformer",
-          "flowformer_pp", "gma", "lcv_raft", "lcv_raft_small", "llaflow",
-          "llaflow_raft", "memflow", "memflow_t", "memfof", "neuflow2",
-          "raft", "raft_small", "rapidflow", "rapidflow_it1",
+PORTED = ["craft", "csflow", "dip", "dpflow", "flow1d", "flow_anything",
+          "flowformer", "flowformer_pp", "flowseek_m", "flowseek_t", "gma",
+          "gmflownet", "gmflownet_mix", "lcv_raft", "lcv_raft_small",
+          "llaflow", "llaflow_raft", "memflow", "memflow_t", "memfof",
+          "neuflow2", "raft", "raft_small", "rapidflow", "rapidflow_it1",
           "rapidflow_it2", "rapidflow_it3", "rapidflow_it6", "recover_cx",
           "recover_mn", "recover_rn", "rpknet", "sea_raft", "sea_raft_l",
           "sea_raft_m", "sea_raft_s", "skflow", "splatflow", "streamflow",
-          "videoflow_bof", "videoflow_mof"]
+          "videoflow_bof", "videoflow_mof", "waft_dav2_a1", "waft_dav2_a2",
+          "waft_dinov3_a2", "waft_twins_a2"]
 
 
 def test_registry():
-    """The 35 ported names; the trainable ones are the JAX package's
+    """The 45 ported names; the trainable ones are the JAX package's
     trainable names among them (``flowformer_pp``, the VideoFlows,
-    ``memfof``, ``splatflow`` and ``flow_anything`` are not trainable)."""
+    ``memfof``, ``splatflow``, ``flow_anything`` and the FlowSeeks are not
+    trainable)."""
     assert ptlflow_tpu_torch.get_model_names() == PORTED
-    assert len(PORTED) == 35
+    assert len(PORTED) == 45
     assert ptlflow_tpu_torch.get_trainable_model_names() == [
         n for n in PORTED if n in ptlflow_tpu.get_trainable_model_names()]
     for name in ("flowformer_pp", "videoflow_bof", "videoflow_mof",
-                 "memfof", "splatflow", "flow_anything"):
+                 "memfof", "splatflow", "flow_anything", "flowseek_t",
+                 "flowseek_m"):
         assert name not in ptlflow_tpu_torch.get_trainable_model_names()
     for name in ("craft", "neuflow2", "streamflow", "csflow", "llaflow",
-                 "llaflow_raft", "recover_cx", "recover_mn", "recover_rn"):
+                 "llaflow_raft", "recover_cx", "recover_mn", "recover_rn",
+                 "waft_dav2_a1", "waft_dav2_a2", "waft_dinov3_a2",
+                 "waft_twins_a2", "dip", "flow1d", "gmflownet",
+                 "gmflownet_mix"):
         assert name in ptlflow_tpu_torch.get_trainable_model_names()
     assert ptlflow_tpu_torch.get_ptlflow_trained_model_names() == [
-        "dpflow", "gma", "raft", "raft_small", "rapidflow", "rapidflow_it1",
-        "rapidflow_it2", "rapidflow_it3", "rapidflow_it6", "rpknet"]
+        "dpflow", "flowseek_m", "flowseek_t", "gma", "raft", "raft_small",
+        "rapidflow", "rapidflow_it1", "rapidflow_it2", "rapidflow_it3",
+        "rapidflow_it6", "rpknet", "waft_dav2_a1", "waft_dav2_a2",
+        "waft_twins_a2"]
     assert ptlflow_tpu_torch.get_model_reference("raft").__name__ == "raft"
     with pytest.raises(ValueError):
         ptlflow_tpu_torch.get_model_reference("no_such_model")
@@ -210,7 +219,16 @@ def test_checkpoint_round_trip(tmp_path):
     ("recover_mn", "cnet.features.4.block.2.fc1.weight"),
     ("recover_cx", "cnet.features.1.2.block.3.weight"),
     ("recover_rn", "cnet.layer2.0.downsample.1.weight"),
-    ("flow_anything", "fnet.layer3.5.conv2.weight")])
+    ("flow_anything", "fnet.layer3.5.conv2.weight"),
+    ("waft_twins_a2", "encoder.backbone.pos_block.3.proj.0.weight"),
+    ("waft_dav2_a2", "encoder.encoder.cls_token"),
+    ("waft_dav2_a1", "da_feature.depth_anything.pretrained.cls_token"),
+    ("flowseek_t", "dav2.pretrained.pos_embed"),
+    ("flowseek_m", "dav2.pretrained.pos_embed"),
+    ("dip", "update_block_s.gru.convq.weight"),
+    ("flow1d", "attn_x.self_attn.query_conv.weight"),
+    ("gmflownet", "fnet.1.blocks.0.attn.relative_position_index"),
+    ("gmflownet_mix", "fnet.1.blocks.0.localAttn.relative_position_index")])
 def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     """A Lightning-style .ckpt in the reference's layout, converted from a
     JAX tree (MemFlow nests its net under ``network.``, LCV-RAFT stores
@@ -220,8 +238,12 @@ def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     (1, 1, 48, 1, 1), StreamFlow its temporal transformer, MEMFOF and
     LLA-Flow their ``gamma`` blends, CSFlow its strip block, SplatFlow its
     second GRU branch, ReCoVEr torchvision's MobileNetV3 and ConvNeXt
-    names, ConvNeXt's ``layer_scale`` as (dim, 1, 1)), loads into
-    ``get_model`` strictly, every tensor equal."""
+    names, ConvNeXt's ``layer_scale`` as (dim, 1, 1), WAFT's and
+    FlowSeek's ViTs, DIP's small update block, Flow1D's 1-D attention,
+    GMFlowNet's ``relative_position_index`` buffers), loads into
+    ``get_model`` strictly, every tensor equal.  WAFT's Twins checkpoint
+    also holds timm's classifier ``norm.``/``head.``, which the load
+    drops."""
     import jax
 
     from ptlflow_tpu_torch.utils.convert import state_dict_from_jax
@@ -233,8 +255,12 @@ def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     state = state_dict_from_jax(
         random_params(shapes, np.random.RandomState(9)), target)
     assert any(k.startswith(extra) for k in state)
+    timm = {f"encoder.backbone.{k}": torch.zeros(2)
+            for k in ("norm.weight", "head.weight", "head_drop.p")
+            if name == "waft_twins_a2"}
     path = tmp_path / f"{name}.ckpt"
-    torch.save({"state_dict": dict(state, **{"loss_fn.x": torch.zeros(1)}),
+    torch.save({"state_dict": dict(state, **timm,
+                                   **{"loss_fn.x": torch.zeros(1)}),
                 "hyper_parameters": {}}, path)
     model = ptlflow_tpu_torch.get_model(name, ckpt_path=str(path),
                                         device="cpu")

@@ -74,7 +74,10 @@ def calibrate_norms(jmodel, params, images):
     """``params`` (numpy) with every BatchNorm's running statistics set to
     those of ``images``, as training leaves them for its data: the JAX
     package's training forward with momentum 1.  The port gets them through
-    ``state_dict_from_jax``, so no weight comes from the code under test."""
+    ``state_dict_from_jax``, so no weight comes from the code under test.
+    The jitted forward is kept on ``jmodel``, so a model that
+    ``jax_twin`` shares between tests calibrates inputs of one shape with
+    one compilation."""
     norms = [m for m in jax_modules(jmodel) if isinstance(m, jnn.BatchNorm2d)]
     saved = [m.momentum for m in norms]
     for m in norms:
@@ -86,19 +89,34 @@ def calibrate_norms(jmodel, params, images):
         jmodel.forward(p, {"images": x}, training=True)
         return p
 
+    if getattr(jmodel, "_calibrate", None) is None:
+        jmodel._calibrate = jax.jit(new_params)
     try:
-        full = jax.jit(new_params)(params, jnp.asarray(images))
+        full = jmodel._calibrate(params, jnp.asarray(images))
     finally:
         for m, momentum in zip(norms, saved):
             m.momentum = momentum
     return jax.tree_util.tree_map(np.asarray, full)
 
 
+_JAX_TWINS = {}
+
+
+def jax_twin(name, **args):
+    """The JAX package's ``name`` built once per (name, args) for the
+    module: its jitted forwards (``infer``, ``calibrate_norms``) carry over
+    to the next test that asks for it."""
+    key = (name, tuple(sorted(args.items())))
+    if key not in _JAX_TWINS:
+        _JAX_TWINS[key] = ptlflow_tpu.get_model_reference(name)(**args)
+    return _JAX_TWINS[key]
+
+
 def jax_and_port(name, seed, images, **args):
     """The JAX model and the port's model on the CPU, with the same seeded
     weights, conditioned and with their norms calibrated on ``images``.
     Returns (JAX model, port model, numpy params of the JAX tree)."""
-    jmodel = ptlflow_tpu.get_model_reference(name)(**args)
+    jmodel = jax_twin(name, **args)
     shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
     params = random_params(shapes, np.random.RandomState(seed))
     condition(params)
@@ -326,12 +344,13 @@ def test_mixed_precision_forward_matches_jax():
     """sea_raft_m, 1 refinement, in mixed precision: the port's bf16
     weights are stored once, the JAX package casts its fp32 ones on every
     forward; mean |port - JAX mixed| is at most 1.5x mean |JAX fp32 - JAX
-    mixed| on the same inputs, and the flow stays fp32."""
+    mixed| on the same inputs, and the flow stays fp32.  The fp32 twin is
+    the module's shared ``jax_twin("sea_raft_m", iters=1)``."""
     images = np.random.RandomState(69).rand(1, 2, 3, 64, 96).astype(
         np.float32)
     jmixed, tmixed, _ = jax_and_port("sea_raft_m", 69, images, iters=1,
                                      mixed_precision=True)
-    jfp32 = ptlflow_tpu.get_model_reference("sea_raft_m")(iters=1)
+    jfp32 = jax_twin("sea_raft_m", iters=1)
     jfp32.params = jmixed.params
     assert tmixed.fnet.conv1.weight.dtype == torch.bfloat16
     assert tmixed.update_block.refine[0].gamma.dtype == torch.bfloat16
