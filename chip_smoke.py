@@ -154,6 +154,24 @@ Phases, each of which must pass, else the script exits non-zero:
     train ``gmflownet`` (32 iterations) and ``waft_twins_a2`` at 368x496 at
     the first batch of (10, 8, 6, 4, 2) that fits; and both kernels against
     their plain versions and timed at GMFlowNet's training pyramid.
+16. MatchFlow (``matchflow``, ``matchflow_raft``), SCV (``scv4``,
+    ``scv8``), MS-RAFT+ (``ms_raft_p``) and CCMR (``ccmr``, ``ccmr_p``),
+    the quadtree attention, the sparse top-k volume and the on-the-fly
+    AltCorrBlock: serve 3 consecutive pairs of one sequence at 436x1024
+    through each, warm-started from the last's ``flow_small``, counting 32
+    lookups a forward for MatchFlow and none for SCV and the AltCorrBlock
+    defaults; time and profile each fp32 forward with its peak memory (the
+    top-k and gather kernels by name, the AltCorrBlock lookups' device ms);
+    the flows of all seven at 256x320 on the card against the CPU, the CPU
+    taking the card's top-k selections and the differing ones counted;
+    ``ms_raft_p``, ``ccmr`` and ``ccmr_p`` built with
+    ``alternate_corr=False`` (their CorrBlock launches the lookup kernel)
+    against the AltCorrBlock defaults at 256x320, ``ccmr`` at 436x1024
+    too; one train step at 128x160 of ``matchflow``, ``scv4`` and
+    ``ms_raft_p`` on both; train ``matchflow`` (32 iterations) and
+    ``ms_raft_p`` at 368x496 at the first batch of (8, 6, 4, 2, 1) that
+    fits; and both kernels against their plain versions and timed at
+    ``ccmr``'s CorrBlock pyramid at 436x1024.
 
 A profiler reading under its kernel's bound, or whose kernel records do not
 match the launches that the wrappers counted, is printed as invalid and
@@ -167,8 +185,8 @@ The second-to-last line is ``{"kernels": [...]}``, the line before it the
 card's name and power limit (after ``{"harness": ...}``,
 ``{"train_cli": ...}``, ``{"flowformer": ...}``, ``{"sk_family": ...}``,
 ``{"recurrent_pyramid": ...}``, ``{"video_and_attention": ...}``,
-``{"volume_and_backbone": ...}`` and ``{"slice13": ...}``, phases 8-15's
-numbers), and the last
+``{"volume_and_backbone": ...}``, ``{"slice13": ...}`` and
+``{"slice14": ...}``, phases 8-16's numbers), and the last
 line ``{"ok": true, "device": {...}}``.  With no card it prints no result
 and exits 2.
 """
@@ -353,6 +371,32 @@ S13_TRAIN_STEPS = 4
 # shifted by whole feature pixels (x, y), so that most pixels have a clear
 # best match
 S13_MATCH_SHIFT = (16, 8)
+# Phase 16: MatchFlow (+RAFT), SCV (4, 8), MS-RAFT+ and CCMR (+) at their
+# registered depths: (model, lookup launches a forward).  MatchFlow resizes
+# 1024x436 to 1024x448 and launches the lookup once an iteration; SCV's
+# sparse volume and the on-the-fly AltCorrBlock of MS-RAFT+ and CCMR (their
+# default) launch none
+S14_SERVE = (("matchflow", 32), ("matchflow_raft", 32), ("scv4", 0),
+             ("scv8", 0), ("ms_raft_p", 0), ("ccmr", 0), ("ccmr_p", 0))
+S14_NAMES = tuple(name for name, _ in S14_SERVE)
+# served without ``damp_to_served_size``: MS-RAFT+ upsamples its coords to
+# the next scale (``condition_slice14``), which leaves each finer grid up to
+# a pixel off, 2^scales px at the input, whatever the flow head
+S14_UNDAMPED = ("ms_raft_p",)
+# the CorrBlock route (alternate_corr=False), whose lookup is the kernel: one
+# launch an iteration, sum(iters) a forward
+S14_DENSE = (("ms_raft_p", 25), ("ccmr", 33), ("ccmr_p", 38))
+# one train step card against CPU at 128x160, 2 iterations (a scale): (model,
+# args, the forward kernel's and the backward's launches, the batch seed)
+S14_STEP_CHECK = (("matchflow", {"iters": 2}, (2, 2), 6),
+                  ("scv4", {"iters": 2}, (0, 0), 6),
+                  ("ms_raft_p", {"iters": (2, 2, 2, 2)}, (0, 0), 6))
+# timed training at 368x496 at the first batch that fits, at the registered
+# depths: matchflow's 32 iterations (32 lookups and 32 backward lookups a
+# step), ms_raft_p's (4, 6, 5, 10) on AltCorrBlock (none)
+S14_TRAIN = (("matchflow", (32, 32)), ("ms_raft_p", (0, 0)))
+S14_TRAIN_BATCHES = (8, 6, 4, 2, 1)
+S14_TRAIN_STEPS = 3
 # softsplat_average, card against CPU: float32 sums of a few terms whose
 # atomics add in no fixed order on the card
 ATOL_SPLAT = 1e-5
@@ -932,6 +976,86 @@ def condition_slice13(torch, name: str, model, images) -> None:
         randomise_norms(torch, model, 15)
 
 
+def condition_slice14(torch, name: str, model) -> None:
+    """Phase 16's models, conditioned as their CPU tests are: the flow head's
+    last conv damped by 0.01 (32 iterations, or 25 to 38 over the scales),
+    GMA's aggregator ``gamma`` (0 at init) seeded in [0.1, 1] and seeded
+    BatchNorm statistics (MatchFlow's encoders, SCV's context encoder;
+    MS-RAFT+ and CCMR have GroupNorms).  MS-RAFT+ upsamples its *coords*
+    to the next scale with the last mask, whose zero-padded 3x3
+    neighbourhood a random mask mixes into them (30 px mean flows at
+    64x96, whatever the flow head): its mask head picks the centre
+    neighbour instead (its 4 logits +10, the weights x 0.01), as a
+    trained one must at the borders; each finer grid is then up to a pixel
+    off the upsampled coords (S14_UNDAMPED)."""
+    set_layer_scales(torch, model, 16)
+    damp_flow_head(model, 0.01)
+    randomise_norms(torch, model, 16)
+    if name == "ms_raft_p":
+        with torch.no_grad():
+            conv = model.update_block.mask[2]
+            conv.weight.mul_(0.01)
+            # channel k*4 + i*2 + j, centre k = 4; the block scales the
+            # mask by 0.25: logits +10
+            conv.bias[16:20] += 40.0
+
+
+class TopkReplay:
+    """Every ``torch.topk`` of a run on the card recorded, then given to a
+    run on the CPU: the quadtree attention's and SCV's selections, where a
+    near tie in float32 may be broken either way and move a flow by a
+    pixel.  The CPU run takes the card's indices (its values gathered from
+    its own scores) and counts the rows whose own selection, as a set,
+    differs from the card's."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.topk = torch.topk
+        self.recorded = []
+        self.rows = self.differ = 0
+
+    def record(self):
+        self.recorded = []
+
+        def topk(x, k, dim=-1, **kw):
+            out = self.topk(x, k, dim, **kw)
+            self.recorded.append(out.indices.cpu())
+            return out
+
+        return self._patched(topk)
+
+    def replay(self):
+        torch = self.torch
+        pending = iter(self.recorded)
+        self.rows = self.differ = 0
+
+        def topk(x, k, dim=-1, **kw):
+            own = self.topk(x, k, dim, **kw).indices
+            idx = next(pending).to(x.device)
+            if idx.shape != own.shape or dim not in (-1, x.dim() - 1):
+                raise AssertionError(f"top-k replay: {tuple(idx.shape)} "
+                                     f"recorded, {tuple(own.shape)} asked")
+            moved = (idx.sort(-1).values != own.sort(-1).values).any(-1)
+            self.rows += moved.numel()
+            self.differ += int(moved.sum())
+            return torch.return_types.topk((x.gather(-1, idx), idx))
+
+        return self._patched(topk)
+
+    def _patched(self, fn):
+        import contextlib
+
+        @contextlib.contextmanager
+        def patched():
+            self.torch.topk = fn
+            try:
+                yield self
+            finally:
+                self.torch.topk = self.topk
+
+        return patched()
+
+
 def parity_weights(torch, name: str, model, images) -> None:
     """Random weights conditioned to steps of trained size, so that two
     correct runs agree (random RAFT-family weights are chaotic: fp32
@@ -949,7 +1073,11 @@ def parity_weights(torch, name: str, model, images) -> None:
     NeuFlow v2, VideoFlow, StreamFlow: ``condition_video_and_attention``.
     MEMFOF, LLA-Flow, CSFlow, SplatFlow, ReCoVEr, Flow-Anything:
     ``condition_volume_and_backbone``.  WAFT, FlowSeek, DIP, Flow1D,
-    GMFlowNet: ``condition_slice13``."""
+    GMFlowNet: ``condition_slice13``.  MatchFlow, SCV, MS-RAFT+, CCMR:
+    ``condition_slice14``."""
+    if name in S14_NAMES:
+        condition_slice14(torch, name, model)
+        return
     if name in S13_NAMES:
         condition_slice13(torch, name, model, images)
         return
@@ -1057,7 +1185,8 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
     rounding alone moves this step), before the failure is raised.  The card
     step must launch each kernel ``lookups`` times (a pair: the forward
     kernel's launches, the backward's).  The batch holds sequences of
-    ``frames`` frames (``train_batch``, seeded with ``batch_seed``)."""
+    ``frames`` frames (``train_batch``, seeded with ``batch_seed``).  The
+    CPU steps take the card step's top-k selections (``TopkReplay``)."""
     import ptlflow_tpu_torch
     from ptlflow_tpu_torch.nn import split_trainable
     from ptlflow_tpu_torch.ops import correlation as corr
@@ -1073,7 +1202,7 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
     # the CPU again, on images one fp32 rounding off (x (1 + 2^-23)), where
     # a check fails
     nudged = dict(batch, images=batch["images"] * (1 + 2.0 ** -23))
-    step_out = {}
+    step_out, launched = {}, {}
 
     def step(label, model, where, b):
         params, _ = split_trainable(model)
@@ -1084,11 +1213,20 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
         step_out[label] = (loss.item(), list(params), [g.cpu() for g in grads],
                            {k: v.cpu() for k, v in bn_stats(model).items()},
                            ttrain.global_norm(grads).item())
+        launched[label] = (corr.corr_lookup_kernel.launches,
+                           corr.corr_lookup_backward_kernel.launches)
 
-    step("cpu", cpu_model, "cpu", batch)
-    step("card", gpu_model, dev, batch)
-    card_launches = (corr.corr_lookup_kernel.launches,
-                     corr.corr_lookup_backward_kernel.launches)
+    replay = TopkReplay(torch)
+    with replay.record():
+        step("card", gpu_model, dev, batch)
+    with replay.replay():
+        step("cpu", cpu_model, "cpu", batch)
+    topk_rows = [replay.differ, replay.rows]
+    if replay.rows:
+        log(f"[4 card vs cpu] {name} train step: {replay.differ} of "
+            f"{replay.rows} top-k selections differ between the card and "
+            f"the CPU; the CPU took the card's")
+    card_launches = launched["card"]
     if card_launches != expected:
         raise AssertionError(f"{name} card train step: launches "
                              f"{card_launches}, expected {expected}")
@@ -1112,7 +1250,8 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
     grad_ok = glob_max <= GRAD_RTOL and glob_norm <= GRAD_RTOL
     runs = [("card", gg)]
     if not (loss_ok and bn_ok and grad_ok):
-        step("cpu nudged", cpu_model, "cpu", nudged)
+        with replay.replay():
+            step("cpu nudged", cpu_model, "cpu", nudged)
         runs.append(("CPU, input one rounding off",
                      step_out["cpu nudged"][2]))
     for label, grads in runs:
@@ -1138,9 +1277,12 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
     if not grad_ok:
         raise AssertionError(f"{name} card train step: gradient {glob_max}, "
                              f"{glob_norm}")
-    return {"loss": [gl, cl], "grad_max_rel": glob_max,
-            "grad_norm_rel": glob_norm, "bn_err": bn_err,
-            "launches": card_launches}
+    out = {"loss": [gl, cl], "grad_max_rel": glob_max,
+           "grad_norm_rel": glob_norm, "bn_err": bn_err,
+           "launches": card_launches}
+    if topk_rows[1]:
+        out["topk_rows_differing"] = topk_rows
+    return out
 
 
 def coords_grad_check(torch, dev, case_inputs) -> None:
@@ -1921,6 +2063,18 @@ def main(argv=None) -> int:
     for name, path in s13_train_paths.items():
         launches[path] = sum(s13["train"][name]["lookup"])
 
+    # ---------------------------------------------------------------- 16
+    t16 = time.perf_counter()
+    s14 = slice14_phase(torch, dev, tag)
+    log(f"[16] {time.perf_counter() - t16:.1f} s")
+    launches.update(s14["launches"])
+    s14_train_paths = {
+        name: (f"{name} train, {S14_TRAIN_STEPS} steps at {TRAIN_W}x"
+               f"{TRAIN_H}, batch {rec['batch']}")
+        for name, rec in s14["train"].items()}
+    for name, path in s14_train_paths.items():
+        launches[path] = sum(s14["train"][name]["lookup"])
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -1957,6 +2111,7 @@ def main(argv=None) -> int:
         "video_and_attention_shapes": va["kernels"]["corr_lookup"],
         "volume_and_backbone_shapes": vb["kernels"]["corr_lookup"],
         "slice13_shapes": s13["kernels"]["corr_lookup"],
+        "slice14_shapes": s14["kernels"]["corr_lookup"],
         "invalid_profiler_readings": [
             r for r in INVALID_READINGS if r["kernel"] == "corr_lookup"],
     }, {
@@ -1993,7 +2148,12 @@ def main(argv=None) -> int:
                check["launches"][1]
                for name, check in s13["train_step_card_vs_cpu"].items()},
             **{path: sum(s13["train"][name]["lookup_backward"])
-               for name, path in s13_train_paths.items()}),
+               for name, path in s13_train_paths.items()},
+            **{f"{name} train step at 128x160, 2 iterations":
+               check["launches"][1]
+               for name, check in s14["train_step_card_vs_cpu"].items()},
+            **{path: sum(s14["train"][name]["lookup_backward"])
+               for name, path in s14_train_paths.items()}),
         "max_abs_err": bwd_err,
         "max_abs_grad": bwd_gmax,
         "ms": bwd_ms,
@@ -2011,6 +2171,7 @@ def main(argv=None) -> int:
         "volume_and_backbone_shapes":
             vb["kernels"]["corr_lookup_backward"],
         "slice13_shapes": s13["kernels"]["corr_lookup_backward"],
+        "slice14_shapes": s14["kernels"]["corr_lookup_backward"],
         "profiler_readings_raft_train_shape": bwd_readings,
         "invalid_profiler_readings": [
             r for r in INVALID_READINGS
@@ -2038,6 +2199,8 @@ def main(argv=None) -> int:
                                             if k != "kernels"},
                     "card": tag}))
     log(json.dumps({"slice13": {k: v for k, v in s13.items()
+                                if k != "kernels"}, "card": tag}))
+    log(json.dumps({"slice14": {k: v for k, v in s14.items()
                                 if k != "kernels"}, "card": tag}))
     log(tag)
     log(json.dumps({"kernels": kernels}))
@@ -3832,6 +3995,241 @@ def slice13_phase(torch, dev, tag: str) -> dict:
     del got, grad, coords, levels
     torch.cuda.empty_cache()
     log(f"[15 kernels] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def alt_corr_ms(torch, model, images):
+    """Device ms of the ``AltCorrBlock`` lookups within one eval forward of
+    ``images``, by CUDA events around each call (the calls' kernels run in
+    order on the one stream), and the number of calls."""
+    from ptlflow_tpu_torch.ops import correlation as corr
+
+    call = corr.AltCorrBlock.__call__
+    spans = []
+
+    def timed(self, coords):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = call(self, coords)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    corr.AltCorrBlock.__call__ = timed
+    try:
+        model({"images": images})
+        torch.cuda.synchronize()
+    finally:
+        corr.AltCorrBlock.__call__ = call
+    return sum(a.elapsed_time(b) for a, b in spans), len(spans)
+
+
+def slice14_phase(torch, dev, tag: str) -> dict:
+    """Phase 16: MatchFlow (+RAFT), SCV (4, 8), MS-RAFT+ and CCMR (+) on the
+    card at their registered depths (S14_SERVE), fp32, TF32 off.  Serves 3
+    consecutive pairs of one sequence at 436x1024 through each, each
+    warm-started from the last's ``flow_small``, counting 32 lookup
+    launches a forward for MatchFlow and none for SCV and the AltCorrBlock
+    defaults, and asserting no autograd graph; times and profiles each
+    fp32 forward with its peak memory (the top-k, sort, gather and
+    indexing kernels by name; the AltCorrBlock lookups' device ms by CUDA
+    events around each call); holds the card against the CPU at 256x320
+    for every name, the CPU taking the card's top-k selections
+    (``TopkReplay``) and the differing selections counted; builds
+    ``ms_raft_p``, ``ccmr`` and ``ccmr_p`` with ``alternate_corr=False``,
+    whose CorrBlock launches the lookup kernel once an iteration, and
+    holds their flows to the AltCorrBlock defaults' at 256x320, and
+    ``ccmr``'s at 436x1024 too; one train step at 128x160 card against
+    CPU (S14_STEP_CHECK); trains S14_TRAIN at TRAIN_H x TRAIN_W at the
+    first of S14_TRAIN_BATCHES that fits (unprofiled); and both kernels
+    against their plain versions and timed at ``ccmr``'s CorrBlock pyramid
+    at 436x1024 (its 1/4 scale, padded to 448x1024: Q = 28,672 on 112x256
+    and 56x128)."""
+    import ptlflow_tpu_torch
+    from ptlflow_tpu_torch.ops import correlation as corr
+    from ptlflow_tpu_torch.parallel import train as ttrain
+    from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+
+    out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
+           "peak_gib": {}, "forward_gib": {}, "launches": {},
+           "card_vs_cpu_px": {}, "topk_rows_differing": {},
+           "alt_corr_ms": {}, "dense_vs_alt_px": {}}
+    gemm = ("gemm", ("fprop", "dgrad", "wgrad", "conv", "implicit"))
+    # the quadtree attention's and SCV's top-k (sbtopk::gatherTopK), the
+    # quadtree's candidate gathers (torch.gather), AltCorrBlock's patch
+    # gathers (advanced indexing) and its batched dot products (GEMVs)
+    named = {"GEMMs": gemm, "top-k": "topk", "sort": "sort",
+             "torch.gather": "scatter_gather",
+             "index gathers": "index_elementwise", "GEMVs": "gemvx",
+             "softmax": "softmax"}
+    dense_depth = dict(S14_DENSE)
+    frames = smooth_frames(161, H, W, 4, shift=(2, 1))
+    calib_frames = smooth_frames(162, H, W, 2, shift=(2, 1))
+    for name, depth in S14_SERVE:
+        t0 = time.perf_counter()
+        model = ptlflow_tpu_torch.get_model(name)
+        calib = IOAdapter(model).prepare_inputs(calib_frames)["images"]
+        parity_weights(torch, name, model, calib)
+        if name not in S14_UNDAMPED:
+            damp_to_served_size(torch, name, model, calib)
+        n, x = serve_sequence(torch, name, model, frames, depth,
+                              (1, 1, 2, H, W), 16, window=2, warm=True)
+        key = f"{name} serve at {W}x{H}, 3 pairs"
+        out["launches"][key] = n
+        if n != 3 * depth:
+            raise AssertionError(f"{key}: {n} lookup launches")
+        label = f"{name} fp32"
+        # the AltCorrBlock models take 0.4-1 s a forward: 2 a timed run
+        slow = name in dense_depth
+        time_forward(torch, model, x["images"], label, tag,
+                     f"{depth} lookups", 16, out, named,
+                     reps=2 if slow else 5, warmups=1 if slow else 2)
+        if name in dense_depth:
+            ms, calls = alt_corr_ms(torch, model, x["images"])
+            fwd_ms = out["forward_ms"][label]
+            out["alt_corr_ms"][label] = [ms, calls, ms / fwd_ms]
+            log(f"[16 forward] [{tag}] {label}: {calls} AltCorrBlock lookups "
+                f"take {ms:.3f} ms by CUDA events around each call, "
+                f"{ms / fwd_ms:.1%} of the {fwd_ms:.3f} ms forward")
+        if name == "ccmr":
+            # the CorrBlock route at full size: the lookup kernel on its
+            # 1/16-1/4 pyramids (the 1/4 volume is 4.1 GB)
+            dense = ptlflow_tpu_torch.get_model(
+                name, args={"alternate_corr": False})
+            dense.load_state_dict(model.state_dict())
+            corr.corr_lookup_kernel.launches = 0
+            got = dense({"images": x["images"]})["flows"]
+            torch.cuda.synchronize()
+            nd = corr.corr_lookup_kernel.launches
+            want = model({"images": x["images"]})["flows"]
+            diff = (got - want).abs().max().item()
+            out["dense_vs_alt_px"][f"{name} at {W}x{H}"] = diff
+            out["launches"][f"{name} alternate_corr=False at {W}x{H}"] = nd
+            log(f"[16 dense vs alt] {name} at {W}x{H}, CorrBlock (the lookup "
+                f"kernel, {nd} launches) against AltCorrBlock: max |dflow| "
+                f"{diff:.3e} px (tolerance {ATOL_CARD_CPU_PX} px)")
+            if nd != dense_depth[name] or not diff <= ATOL_CARD_CPU_PX:
+                raise AssertionError(f"{name} CorrBlock route: {nd} "
+                                     f"launches, {diff} px")
+            del dense, got, want
+        log(f"[16 serve] {name}: {time.perf_counter() - t0:.1f} s with its "
+            f"timing")
+        del model, x
+        torch.cuda.empty_cache()
+
+    # card against CPU at 256x320, the registered depths, the CPU on the
+    # card's top-k selections; the CorrBlock route against AltCorrBlock
+    t0 = time.perf_counter()
+    pair = smooth_frames(7, 256, 320, 2, shift=(3, 2))
+    x = IOAdapter(device="cpu").prepare_inputs(pair)
+    xd = x["images"].to(dev)
+    for name in S14_NAMES:
+        gpu_model, cpu_model = card_and_cpu(torch, name, xd,
+                                            served=name not in S14_UNDAMPED)
+        replay = TopkReplay(torch)
+        with replay.record():
+            got = gpu_model({"images": xd})["flows"]
+        with replay.replay():
+            want = cpu_model(x)["flows"]
+        diff = (got.cpu() - want).abs().max().item()
+        out["card_vs_cpu_px"][name] = diff
+        out["topk_rows_differing"][name] = [replay.differ, replay.rows]
+        log(f"[16 card vs cpu] {name} 256x320: max |dflow| {diff:.3e} px "
+            f"(flow up to {want.abs().max().item():.2f} px, tolerance "
+            f"{ATOL_CARD_CPU_PX} px); {replay.differ} of {replay.rows} "
+            f"top-k selections differ, the CPU took the card's")
+        if not diff <= ATOL_CARD_CPU_PX:
+            raise AssertionError(f"{name}: card and CPU differ by {diff} px")
+        if name in dense_depth:
+            dense = ptlflow_tpu_torch.get_model(
+                name, args={"alternate_corr": False})
+            dense.load_state_dict(gpu_model.state_dict())
+            corr.corr_lookup_kernel.launches = 0
+            got_dense = dense({"images": xd})["flows"]
+            torch.cuda.synchronize()
+            nd = corr.corr_lookup_kernel.launches
+            diff = (got_dense - got).abs().max().item()
+            out["dense_vs_alt_px"][f"{name} at 320x256"] = diff
+            out["launches"][f"{name} alternate_corr=False at 320x256"] = nd
+            log(f"[16 dense vs alt] {name} 256x320, CorrBlock (the lookup "
+                f"kernel, {nd} launches) against AltCorrBlock on the card: "
+                f"max |dflow| {diff:.3e} px (tolerance {ATOL_CARD_CPU_PX} "
+                f"px)")
+            if nd != dense_depth[name] or not diff <= ATOL_CARD_CPU_PX:
+                raise AssertionError(f"{name} CorrBlock route: {nd} "
+                                     f"launches, {diff} px")
+            del dense, got_dense
+        del cpu_model, gpu_model, got, want
+    del xd
+    log(f"[16 card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # one train step card against CPU at 128x160, 2 iterations (a scale)
+    t0 = time.perf_counter()
+    out["train_step_card_vs_cpu"] = {
+        name: train_step_card_vs_cpu(torch, name, dev, args, launches,
+                                     batch_seed=seed)
+        for name, args, launches, seed in S14_STEP_CHECK}
+    log(f"[16 train step card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # training at 368x496 at the first batch that fits
+    out["train"] = {}
+    for name, launches in S14_TRAIN:
+        t0 = time.perf_counter()
+        model = ptlflow_tpu_torch.get_model(name)
+        batch = train_batch(torch, 16, 2, TRAIN_H, TRAIN_W, dev)
+        parity_weights(torch, name, model, batch["images"])
+        del batch
+        tx = ttrain.make_optimizer(lr=4e-4, wdecay=1e-4, total_steps=120000,
+                                   pct_start=0.05, grad_clip=1.0)
+        out["train"][name] = train_at_largest_batch(
+            torch, dev, tag, model, tx, S14_TRAIN_BATCHES, S14_TRAIN_STEPS,
+            launches[0], name, 16, level_shapes=lambda b: [],
+            profile_runs=0, launches=launches)
+        log(f"[16 train] {name}: {time.perf_counter() - t0:.1f} s")
+        del model, tx
+        torch.cuda.empty_cache()
+
+    # both kernels at ccmr's CorrBlock pyramid at 1024x448 (its 1/4 scale:
+    # 96 channels, 2 levels)
+    t0 = time.perf_counter()
+    hq, wq = -(-H // 32) * 8, -(-W // 32) * 8
+    flush = flushes(torch, dev)["dirty"]
+    g = torch.Generator().manual_seed(16)
+    f1 = torch.randn(1, 96, hq, wq, generator=g).to(dev)
+    f2 = torch.randn(1, 96, hq, wq, generator=g).to(dev) + 0.5 * f1
+    levels = corr.build_corr_pyramid(f1, f2, 2)
+    del f1, f2
+    coords = (torch.rand(1, 2, hq, wq, generator=g).to(dev) * 1.2 - 0.1) \
+        * torch.tensor([wq, hq], device=dev).view(1, 2, 1, 1)
+    label = f"ccmr CorrBlock 1/4 Q={hq * wq}"
+    got = corr.corr_lookup_kernel(levels, coords, 4)
+    err = (got - corr.corr_pyramid_lookup_plain(levels, coords, 4)).abs(
+        ).max().item()
+    log(f"[16 kernel vs plain] {label}, levels "
+        f"{[tuple(p.shape[1:]) for p in levels]}, r=4, fp32: max |err| "
+        f"{err:.3e} (tolerance {ATOL_FP32})")
+    if not err <= ATOL_FP32:
+        raise AssertionError(f"{label}: lookup |err| {err}")
+    grad = torch.randn(got.shape, generator=g).to(dev)
+    out["kernels"] = {
+        "corr_lookup": {label: lookup_record(torch, levels, coords, 4, err,
+                                             flush)},
+        "corr_lookup_backward": {label: backward_record(
+            torch, levels, coords, grad, 4, flush, label)}}
+    for kname, recs in out["kernels"].items():
+        rec = recs[label]
+        log(f"[16 kernels] [{tag}] {kname} at {label}, levels "
+            f"{rec['levels']}, r=4, fp32, L2 flushed per launch: "
+            f"{rec['ms']:.4f} ms by CUDA events, "
+            f"{fmt_ms(rec['profiler_ms'])} device time by the profiler; "
+            f"plain {rec['plain_ms']:.4f} ms; library "
+            f"{rec['library_ms']:.4f} ms; bound {rec['bound_ms']:.5f} ms "
+            f"by {rec['bound_by']} ({rec['bound_bytes']} bytes), kernel "
+            f"at {rec['bound_ms'] / rec['ms']:.1%} of it")
+    del got, grad, coords, levels
+    torch.cuda.empty_cache()
+    log(f"[16 kernels] {time.perf_counter() - t0:.1f} s")
     return out
 
 

@@ -128,10 +128,12 @@ class SmallUpdateBlock(nn.Module):
 
 class BasicUpdateBlock(nn.Module):
     """``cor_planes``, where given, is the correlation width in place of
-    the lookup's (Flow1D's 2 x 65 channels of 1-D windows)."""
+    the lookup's (Flow1D's 2 x 65 channels of 1-D windows, SCV's 405 of
+    sparse windows); ``mask_channels`` is 9 f^2 for convex upsampling by
+    f (SCV's quarter model and MS-RAFT+ upsample by 4 and 2)."""
 
     def __init__(self, corr_levels, corr_radius, hidden_dim=128,
-                 input_dim=128, cor_planes=None):
+                 input_dim=128, cor_planes=None, mask_channels=64 * 9):
         super().__init__()
         self.encoder = BasicMotionEncoder(corr_levels, corr_radius,
                                           cor_planes)
@@ -140,7 +142,7 @@ class BasicUpdateBlock(nn.Module):
         self.flow_head = FlowHead(hidden_dim, hidden_dim=256)
         self.mask = nn.Sequential(
             CastConv2d(128, 256, 3, padding=1), nn.ReLU(),
-            CastConv2d(256, 64 * 9, 1, padding=0))
+            CastConv2d(256, mask_channels, 1, padding=0))
 
     def forward(self, net, inp, corr, flow):
         motion_features = self.encoder(flow, corr)

@@ -15,6 +15,8 @@ version :func:`corr_pyramid_lookup_plain` for one on the CPU.
 :func:`all_pairs_correlation` is the float32 level-0 volume and
 :func:`pool_volume_pyramid` pools such a volume into levels, for the models
 that change the volume before pooling it (LLA-Flow, CSFlow).
+:class:`AltCorrBlock` computes :class:`CorrBlock`'s numbers on the fly,
+without the volume, in plain PyTorch on either device (MS-RAFT+, CCMR).
 
 The lookup is differentiable with respect to the pyramid and, by default,
 never the coords, as RAFT trains it (RAFT's family stops the coords'
@@ -494,6 +496,169 @@ class CorrBlock:
     def __call__(self, coords: torch.Tensor) -> torch.Tensor:
         """(B, L*(2r+1)^2, H1, W1), as :func:`corr_pyramid_lookup`."""
         return self.lookup(coords)
+
+
+def _alt_corr_taps(shape: Tuple[int, int], coords: torch.Tensor,
+                   radius: int):
+    """The integer taps of each query's (2r+2)^2 patch around floor(coords)
+    on one level: its rows of the level's (B*H2*W2, C) table in (dy, dx)
+    order,
+    clamped onto the map, the in-map mask and the bilinear fractions.
+    ``coords`` (q, 3): batch index, x, y on the level's grid."""
+    h2, w2 = shape
+    p = 2 * radius + 2
+    offs = torch.arange(p, device=coords.device) - radius
+    c0 = torch.floor(coords[:, 1:])
+    fx, fy = (coords[:, 1:] - c0).unbind(1)
+    x0, y0 = c0.clamp(-2 ** 20, 2 ** 20).long().unbind(1)
+    ys = y0[:, None] + offs
+    xs = x0[:, None] + offs
+    valid = (((ys >= 0) & (ys < h2))[:, :, None]
+             & ((xs >= 0) & (xs < w2))[:, None, :]).reshape(-1, p * p)
+    rows = (coords[:, 0].long()[:, None, None] * (h2 * w2)
+            + (ys.clamp(0, h2 - 1) * w2)[:, :, None]
+            + xs.clamp(0, w2 - 1)[:, None, :].expand(-1, p, p)
+            ).reshape(-1, p * p)
+    return rows, valid, fx[:, None, None], fy[:, None, None]
+
+
+class _AltCorrFunction(torch.autograd.Function):
+    """:class:`AltCorrBlock`'s lookup as an autograd node that saves only
+    its inputs (the coords, fmap1's rows and the levels' tables) and
+    gathers the patches again in the backward, chunk by chunk: plain
+    autograd would keep every gathered patch of every iteration.  The
+    coords get no gradient, as the JAX package stops it."""
+
+    @staticmethod
+    def forward(ctx, coords, block, f1, *tables):
+        ctx.block = block
+        ctx.save_for_backward(coords, f1, *tables)
+        return block._lookup(coords, f1, tables)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        coords, f1, *tables = ctx.saved_tensors
+        grad_f1, grad_tables = ctx.block._lookup_backward(coords, f1, tables,
+                                                          grad_out)
+        return (None, None, grad_f1, *grad_tables)
+
+
+class AltCorrBlock:
+    """The on-the-fly windowed correlation
+    (``ptlflow_tpu/ops/correlation.py::AltCorrBlock``): the numbers of
+    :class:`CorrBlock` without its O((HW)^2) volume, for the fine scales of
+    MS-RAFT+ and CCMR.  Level ``l`` is fmap2 average-pooled by 2^l (floored
+    as :func:`build_corr_pyramid` floors it), sampled bilinearly at
+    coords / 2^l with zeros outside the map, each tap the dot product with
+    fmap1 over sqrt(C); the output is (B, L*(2r+1)^2, H1, W1) in fmap1's
+    dtype, level-major, the first window axis offsetting x.
+
+    Each query gathers its (2r+2)^2 integer patch of the level's rows
+    (channels last, laid out once here), dots it with its fmap1 row and
+    applies the 2x2 stencil that the whole window shares, in float32;
+    queries go in chunks of at most ``max_patch_elems`` gathered elements
+    (256 MB of float32).
+    Plain PyTorch on either device: the JAX package computes it in XLA.
+    Where autograd needs the features' gradient the lookup is
+    :class:`_AltCorrFunction`, which keeps no gathered patch."""
+
+    max_patch_elems = 1 << 26
+
+    def __init__(self, fmap1: torch.Tensor, fmap2: torch.Tensor,
+                 num_levels: int = 4, radius: int = 4):
+        b, c, h, w = fmap1.shape
+        self.radius = radius
+        self.channels = c
+        self.f1 = fmap1.permute(0, 2, 3, 1).reshape(b * h * w, c)
+        self.tables, self.shapes = [], []
+        for i in range(num_levels):
+            h2, w2 = fmap2.shape[-2:]
+            self.tables.append(fmap2.permute(0, 2, 3, 1).reshape(-1, c))
+            self.shapes.append((h2, w2))
+            if i < num_levels - 1:
+                if min(h2, w2) >= 2:
+                    fmap2 = F.avg_pool2d(fmap2, 2, 2)
+                else:  # F.avg_pool2d refuses an output side of 0
+                    fmap2 = fmap2.new_zeros((b, c, h2 // 2, w2 // 2))
+
+    def __call__(self, coords: torch.Tensor) -> torch.Tensor:
+        _check_coords(coords, self.f1.shape[0], self.f1.device)
+        _check_coords_grad(coords)
+        b, _, h1, w1 = coords.shape
+        q = b * h1 * w1
+        bidx = torch.arange(b, device=coords.device, dtype=coords.dtype)
+        cq = torch.cat([bidx.view(b, 1, 1, 1).expand(b, 1, h1, w1),
+                        coords.detach()], dim=1)
+        cq = cq.permute(0, 2, 3, 1).reshape(q, 3)
+        if torch.is_grad_enabled() and (
+                self.f1.requires_grad
+                or any(t.requires_grad for t in self.tables)):
+            out = _AltCorrFunction.apply(cq, self, self.f1, *self.tables)
+        else:
+            out = self._lookup(cq, self.f1, self.tables)
+        return out.reshape(b, h1, w1, -1).permute(0, 3, 1, 2).contiguous()
+
+    def _chunks(self, q: int):
+        p2 = (2 * self.radius + 2) ** 2
+        step = max(1, self.max_patch_elems // (p2 * self.channels))
+        return [slice(s, min(s + step, q)) for s in range(0, q, step)]
+
+    def _lookup(self, cq, f1, tables) -> torch.Tensor:
+        """(Q, L*(2r+1)^2) in f1's dtype."""
+        r = self.radius
+        n = 2 * r + 1
+        q = cq.shape[0]
+        out = torch.zeros((q, len(tables), n * n), dtype=torch.float32,
+                          device=f1.device)
+        scale = 1.0 / math.sqrt(self.channels)
+        for i, (table, shape) in enumerate(zip(tables, self.shapes)):
+            if 0 in shape:
+                continue
+            lvl = cq / torch.tensor([1.0, 2 ** i, 2 ** i], device=cq.device)
+            for s in self._chunks(q):
+                rows, valid, fx, fy = _alt_corr_taps(shape, lvl[s], r)
+                patch = table[rows].float()  # (q, p*p, C)
+                d = torch.bmm(patch, f1[s].float()[:, :, None])[..., 0]
+                d = (d * valid).view(-1, n + 1, n + 1)  # [q, y, x]
+                t = (1 - fy) * d[:, :n, :] + fy * d[:, 1:, :]
+                val = (1 - fx) * t[:, :, :n] + fx * t[:, :, 1:]
+                # channel a*n + b: x offset on the slow axis
+                out[s, i] = val.transpose(1, 2).reshape(-1, n * n) * scale
+        return out.reshape(q, -1).to(f1.dtype)
+
+    def _lookup_backward(self, cq, f1, tables, grad_out):
+        """The gradients of f1's rows and of each table, the patches
+        gathered again; the transpose of :meth:`_lookup`."""
+        r = self.radius
+        n = 2 * r + 1
+        q = cq.shape[0]
+        scale = 1.0 / math.sqrt(self.channels)
+        g = grad_out.float().reshape(q, len(tables), n, n)
+        grad_f1 = torch.zeros(f1.shape, dtype=torch.float32, device=f1.device)
+        grad_tables = []
+        for i, (table, shape) in enumerate(zip(tables, self.shapes)):
+            gt_ = torch.zeros(table.shape, dtype=torch.float32,
+                              device=table.device)
+            grad_tables.append(gt_)
+            if 0 in shape:
+                continue
+            lvl = cq / torch.tensor([1.0, 2 ** i, 2 ** i], device=cq.device)
+            for s in self._chunks(q):
+                rows, valid, fx, fy = _alt_corr_taps(shape, lvl[s], r)
+                gv = g[s, i].transpose(1, 2) * scale  # [q, y, x]
+                gt = F.pad((1 - fx) * gv, (0, 1)) + F.pad(fx * gv, (1, 0))
+                gd = (F.pad((1 - fy) * gt, (0, 0, 0, 1))
+                      + F.pad(fy * gt, (0, 0, 1, 0)))
+                gd = gd.reshape(-1, (n + 1) ** 2) * valid  # (q, p*p)
+                patch = table[rows].float()
+                grad_f1[s] += torch.bmm(gd[:, None, :], patch)[:, 0]
+                fq = f1[s].float()
+                gt_.index_add_(0, rows.reshape(-1),
+                               (gd[:, :, None] * fq[:, None, :]).reshape(
+                                   -1, fq.shape[1]))
+        return (grad_f1.to(f1.dtype),
+                [gt_.to(t.dtype) for gt_, t in zip(grad_tables, tables)])
 
 
 def corr_lookup_backward_kernel(grad_out: torch.Tensor, coords: torch.Tensor,

@@ -12,7 +12,8 @@ A 2-D ``weight`` is a linear layer's unless the target module says it is an
 embedding table, which the JAX package stores as torch does.  Given the
 target, the result also holds what the JAX tree drops and a strict load
 needs: a second name of a tensor the target registers twice (SEA-RAFT's
-``bn3`` is also ``downsample.1``) and the buffers the JAX package rebuilds
+``bn3``, SCV's and MS-RAFT+'s ``norm3`` are also ``downsample.1``; the JAX
+tree keeps one of the two) and the buffers the JAX package rebuilds
 on every call (GMA's ``rel_ind``, LCV-RAFT's ``corr_block.eye``), and the
 reference's names where the JAX package renames a tensor and its
 ``from_torch`` undoes the rename (``RENAMES``: FlowFormer's FFNs, whose

@@ -72,42 +72,44 @@ def test_port_sources_import_no_jax():
     assert not offenders
 
 
-PORTED = ["craft", "csflow", "dip", "dpflow", "flow1d", "flow_anything",
-          "flowformer", "flowformer_pp", "flowseek_m", "flowseek_t", "gma",
-          "gmflownet", "gmflownet_mix", "lcv_raft", "lcv_raft_small",
-          "llaflow", "llaflow_raft", "memflow", "memflow_t", "memfof",
+PORTED = ["ccmr", "ccmr_p", "craft", "csflow", "dip", "dpflow", "flow1d",
+          "flow_anything", "flowformer", "flowformer_pp", "flowseek_m",
+          "flowseek_t", "gma", "gmflownet", "gmflownet_mix", "lcv_raft",
+          "lcv_raft_small", "llaflow", "llaflow_raft", "matchflow",
+          "matchflow_raft", "memflow", "memflow_t", "memfof", "ms_raft_p",
           "neuflow2", "raft", "raft_small", "rapidflow", "rapidflow_it1",
           "rapidflow_it2", "rapidflow_it3", "rapidflow_it6", "recover_cx",
-          "recover_mn", "recover_rn", "rpknet", "sea_raft", "sea_raft_l",
-          "sea_raft_m", "sea_raft_s", "skflow", "splatflow", "streamflow",
-          "videoflow_bof", "videoflow_mof", "waft_dav2_a1", "waft_dav2_a2",
-          "waft_dinov3_a2", "waft_twins_a2"]
+          "recover_mn", "recover_rn", "rpknet", "scv4", "scv8", "sea_raft",
+          "sea_raft_l", "sea_raft_m", "sea_raft_s", "skflow", "splatflow",
+          "streamflow", "videoflow_bof", "videoflow_mof", "waft_dav2_a1",
+          "waft_dav2_a2", "waft_dinov3_a2", "waft_twins_a2"]
 
 
 def test_registry():
-    """The 45 ported names; the trainable ones are the JAX package's
+    """The 52 ported names; the trainable ones are the JAX package's
     trainable names among them (``flowformer_pp``, the VideoFlows,
-    ``memfof``, ``splatflow``, ``flow_anything`` and the FlowSeeks are not
-    trainable)."""
+    ``memfof``, ``splatflow``, ``flow_anything``, the FlowSeeks and the
+    CCMRs are not trainable)."""
     assert ptlflow_tpu_torch.get_model_names() == PORTED
-    assert len(PORTED) == 45
+    assert len(PORTED) == 52
     assert ptlflow_tpu_torch.get_trainable_model_names() == [
         n for n in PORTED if n in ptlflow_tpu.get_trainable_model_names()]
     for name in ("flowformer_pp", "videoflow_bof", "videoflow_mof",
                  "memfof", "splatflow", "flow_anything", "flowseek_t",
-                 "flowseek_m"):
+                 "flowseek_m", "ccmr", "ccmr_p"):
         assert name not in ptlflow_tpu_torch.get_trainable_model_names()
     for name in ("craft", "neuflow2", "streamflow", "csflow", "llaflow",
                  "llaflow_raft", "recover_cx", "recover_mn", "recover_rn",
                  "waft_dav2_a1", "waft_dav2_a2", "waft_dinov3_a2",
                  "waft_twins_a2", "dip", "flow1d", "gmflownet",
-                 "gmflownet_mix"):
+                 "gmflownet_mix", "matchflow", "matchflow_raft", "scv4",
+                 "scv8", "ms_raft_p"):
         assert name in ptlflow_tpu_torch.get_trainable_model_names()
     assert ptlflow_tpu_torch.get_ptlflow_trained_model_names() == [
-        "dpflow", "flowseek_m", "flowseek_t", "gma", "raft", "raft_small",
-        "rapidflow", "rapidflow_it1", "rapidflow_it2", "rapidflow_it3",
-        "rapidflow_it6", "rpknet", "waft_dav2_a1", "waft_dav2_a2",
-        "waft_twins_a2"]
+        "ccmr", "ccmr_p", "dpflow", "flowseek_m", "flowseek_t", "gma",
+        "ms_raft_p", "raft", "raft_small", "rapidflow", "rapidflow_it1",
+        "rapidflow_it2", "rapidflow_it3", "rapidflow_it6", "rpknet",
+        "waft_dav2_a1", "waft_dav2_a2", "waft_twins_a2"]
     assert ptlflow_tpu_torch.get_model_reference("raft").__name__ == "raft"
     with pytest.raises(ValueError):
         ptlflow_tpu_torch.get_model_reference("no_such_model")
@@ -228,7 +230,14 @@ def test_checkpoint_round_trip(tmp_path):
     ("dip", "update_block_s.gru.convq.weight"),
     ("flow1d", "attn_x.self_attn.query_conv.weight"),
     ("gmflownet", "fnet.1.blocks.0.attn.relative_position_index"),
-    ("gmflownet_mix", "fnet.1.blocks.0.localAttn.relative_position_index")])
+    ("gmflownet_mix", "fnet.1.blocks.0.localAttn.relative_position_index"),
+    ("matchflow", "fnet.loftr_coarse.layers.7.attn.py_att.weight"),
+    ("matchflow_raft", "fnet.backbone.layer3_outconv.weight"),
+    ("scv4", "cnet.layer3.0.norm3.running_var"),
+    ("scv8", "fnet.layer1.0.downsample.0.weight"),
+    ("ms_raft_p", "fnet.layer2.0.downsample.1.weight"),
+    ("ccmr", "update_block.aggregator.2.blocks.0.gamma3"),
+    ("ccmr_p", "xcit.3.blocks.0.attn.temperature")])
 def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     """A Lightning-style .ckpt in the reference's layout, converted from a
     JAX tree (MemFlow nests its net under ``network.``, LCV-RAFT stores
@@ -240,7 +249,9 @@ def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     second GRU branch, ReCoVEr torchvision's MobileNetV3 and ConvNeXt
     names, ConvNeXt's ``layer_scale`` as (dim, 1, 1), WAFT's and
     FlowSeek's ViTs, DIP's small update block, Flow1D's 1-D attention,
-    GMFlowNet's ``relative_position_index`` buffers), loads into
+    GMFlowNet's ``relative_position_index`` buffers, MatchFlow's quadtree
+    level blend, the norm that SCV and MS-RAFT+ register twice (``norm3``
+    and ``downsample.1``), CCMR's temperatures and layer scales), loads into
     ``get_model`` strictly, every tensor equal.  WAFT's Twins checkpoint
     also holds timm's classifier ``norm.``/``head.``, which the load
     drops."""
