@@ -13,7 +13,9 @@ Phases, each of which must pass, else the script exits non-zero:
    main paths' shapes (phase 12's one-level lookups among them: Q = 448 on
    rapidflow's 14x32 level, Q = 32,640 on dpflow's 136x240 level at
    1080p, its training levels; phase 13's Q = 21,120 pyramid, neuflow2's
-   1/16 level and streamflow's training pyramid): the lookup, and the
+   1/16 level and streamflow's training pyramid; phase 17's
+   separableflow pyramid at 1024x448 and its training pyramid at batch
+   10): the lookup, and the
    lookup's backward (which must also give the same bits twice); and the
    coords' gradient of ``neuflow2``'s lookups against autograd of the
    plain version;
@@ -172,6 +174,29 @@ Phases, each of which must pass, else the script exits non-zero:
     ``ms_raft_p`` at 368x496 at the first batch of (8, 6, 4, 2, 1) that
     fits; and both kernels against their plain versions and timed at
     ``ccmr``'s CorrBlock pyramid at 436x1024.
+17. SeparableFlow, PWC-Net (``pwcnet``, ``pwcnet_nodc``) and IRR
+    (``irr_pwc``, ``scopeflow``, ``irr_pwcnet``, ``irr_pwcnet_irr``),
+    GANet's SGA and NLF recursions, the 3-D aggregation U-Nets and the
+    local correlation: serve 3 consecutive pairs of one sequence at
+    436x1024 through each, cold, counting 32 lookups a forward for
+    ``separableflow`` and none for the others (``irr_pwc``'s and
+    ``scopeflow``'s backward flows and occlusions checked); time and
+    profile each fp32 forward with its peak memory, the SGA's, the NLF's
+    and ``local_correlation``'s device ms, calls and launches by CUDA
+    events around their calls, and the ``validate --bf16`` casts of
+    ``separableflow`` and ``pwcnet``; the flows of all seven at 256x320 on
+    the card against the CPU (``separableflow``'s NLF-filtered volume and
+    initial flow too); one train step at 128x192 of ``separableflow`` (32
+    iterations), ``pwcnet`` and ``irr_pwc`` on both; train
+    ``separableflow`` (32 iterations) at 368x496 and ``irr_pwc`` at
+    384x512 at the first batch of (10, 8, 6, 4, 2) that fits; and both
+    kernels against their plain versions and timed at ``separableflow``'s
+    pyramids (phase 2 checks them there too).
+
+Phases 10-16 time their forwards but profile none (the script's time went
+to phase 17; PERF.md section 5 keeps the profiles of their last profiled
+runs), so "times and profiles" below reads "times" there, and their 1080p
+update steps are timed, not profiled.
 
 A profiler reading under its kernel's bound, or whose kernel records do not
 match the launches that the wrappers counted, is printed as invalid and
@@ -185,8 +210,9 @@ The second-to-last line is ``{"kernels": [...]}``, the line before it the
 card's name and power limit (after ``{"harness": ...}``,
 ``{"train_cli": ...}``, ``{"flowformer": ...}``, ``{"sk_family": ...}``,
 ``{"recurrent_pyramid": ...}``, ``{"video_and_attention": ...}``,
-``{"volume_and_backbone": ...}``, ``{"slice13": ...}`` and
-``{"slice14": ...}``, phases 8-16's numbers), and the last
+``{"volume_and_backbone": ...}``, ``{"slice13": ...}``,
+``{"slice14": ...}`` and ``{"slice15": ...}``, phases 8-17's numbers), and
+the last
 line ``{"ok": true, "device": {...}}``.  With no card it prints no result
 and exits 2.
 """
@@ -194,6 +220,7 @@ and exits 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -235,6 +262,14 @@ RTOL_COORDS_GRAD = 1e-4
 # raft-train1-chairs.yaml (ptlflow_tpu/models/raft/configs): crops, batch
 TRAIN_B, TRAIN_H, TRAIN_W = 10, 368, 496
 TRAIN_STEPS = 5
+# phases 10-17's timed forwards: forwards a timed run (each timed by the
+# median of 3 runs) and warm-ups (the 3 served pairs just before warm the
+# model); phase 5's are 10 and 3, and they were 5 and 2 in phases 11-16
+# before phase 17 had to fit into the script's time.  Phases 10-16 profile
+# no forward (the profiles of 24k-launch forwards took ~10 s each to
+# digest), phase 17 each fp32 forward once; the bf16 casts are timed, not
+# profiled; the timed train steps are 2 (4 or 3 before), the second read
+FWD_REPS, FWD_WARMUPS = 1, 0
 # Card against CPU, one train step at 128x160, 2 iterations: the loss within
 # RTOL_LOSS, the BatchNorm statistics within ATOL_BN, and the gradient of
 # the whole model, as one vector, within GRAD_RTOL of the CPU's by its
@@ -260,14 +295,14 @@ FF_SERVE = ("flowformer", "flowformer_pp")
 FF_DEPTH = 32
 FF_TRAIN_SIZE = (432, 960)
 FF_TRAIN_BATCHES = (12, 8, 6, 4, 2)
-FF_TRAIN_STEPS = 4
+FF_TRAIN_STEPS = 2
 # Phase 11: SKFlow, LCV-RAFT (+small) and MemFlow (+T) at their registered
 # depths; MemFlow trained on 368x496 crops at the first of SK_TRAIN_BATCHES
 # that fits the card
 SK_SERVE = (("skflow", 32), ("lcv_raft", 32), ("lcv_raft_small", 32),
             ("memflow", 15), ("memflow_t", 15))
 SK_TRAIN_BATCHES = (8, 6, 4, 2)
-SK_TRAIN_STEPS = 4
+SK_TRAIN_STEPS = 2
 # Phase 12: the coarse-to-fine recurrent pyramids at their registered depths
 # (lookups a forward: steps a level times levels at 1024x436), DPFlow also at
 # Spring's 1920x1080 (4 levels), and their training as
@@ -279,7 +314,7 @@ RP_SERVE = (("rapidflow", 12), ("rapidflow_it1", 1), ("rapidflow_it2", 2),
 SPRING_H, SPRING_W, SPRING_LOOKUPS = 1080, 1920, 16
 RP_TRAIN_H, RP_TRAIN_W = 352, 480
 RP_TRAIN = (("rapidflow", 8, 4e-4), ("dpflow", 5, 2.5e-4))
-RP_TRAIN_STEPS = 4
+RP_TRAIN_STEPS = 2
 # (label, (channels, H, W)) of the one-level lookups both kernels are timed
 # at: rapidflow's 1/8 level of 1024x448, dpflow's of 1920x1088
 RP_KERNEL_LEVELS = (("rapidflow 1/8", (128, 56, 128)),
@@ -294,7 +329,7 @@ VA_SERVE = (("craft", 32, 2), ("neuflow2", 9, 2), ("videoflow_bof", 64, 3),
 # frames, each at the first of its VA_TRAIN_BATCHES that fits (streamflow's
 # batches 8 and 6 ran out of 80 GB, as 4 did, on the H100); neuflow2 at 8
 VA_TRAIN_BATCHES = {"craft": (8, 6, 4, 2), "streamflow": (4, 3, 2)}
-VA_TRAIN_STEPS = 4
+VA_TRAIN_STEPS = 2
 # the lookups of videoflow_mof (5 frames) and streamflow (4) at 1024x436:
 # Q = 3 x 55 x 128 on the 4 levels 55x128 ... 6x16
 VA_KERNEL_Q = (3, 55, 128)
@@ -333,7 +368,7 @@ VB_TRAIN = (("csflow", {"iters": ITERS}, 2 * ITERS),
             ("llaflow", {"iters": ITERS}, ITERS),
             ("memfof", {}, 16))
 VB_TRAIN_BATCHES = (10, 8, 6, 4)
-VB_TRAIN_STEPS = 4
+VB_TRAIN_STEPS = 2
 # Phase 15: WAFT, FlowSeek, DIP, Flow1D and GMFlowNet at their registered
 # depths: (model, lookup launches a forward, warm-started from the last
 # pair's flow_small, (H, W)).  Flow1D also at 1920x1080, the high-resolution
@@ -366,7 +401,7 @@ S13_STEP_CHECK = (("waft_twins_a2", (0, 0), 6), ("dip", (0, 0), 6),
 # step), waft_twins_a2's 5 refinements (no lookup)
 S13_TRAIN = (("gmflownet", {}, (32, 32)), ("waft_twins_a2", {}, (0, 0)))
 S13_TRAIN_BATCHES = (10, 8, 6, 4, 2)
-S13_TRAIN_STEPS = 4
+S13_TRAIN_STEPS = 2
 # GMFlowNet's mutual-match initialisation at 256x320 on smooth frames
 # shifted by whole feature pixels (x, y), so that most pixels have a clear
 # best match
@@ -396,7 +431,45 @@ S14_STEP_CHECK = (("matchflow", {"iters": 2}, (2, 2), 6),
 # step), ms_raft_p's (4, 6, 5, 10) on AltCorrBlock (none)
 S14_TRAIN = (("matchflow", (32, 32)), ("ms_raft_p", (0, 0)))
 S14_TRAIN_BATCHES = (8, 6, 4, 2, 1)
-S14_TRAIN_STEPS = 3
+S14_TRAIN_STEPS = 2
+# Phase 17: SeparableFlow, PWC-Net (+nodc) and IRR (irr_pwc, scopeflow,
+# irr_pwcnet, irr_pwcnet_irr) at their registered depths: (model, lookup
+# launches a forward).  SeparableFlow pads 1024x436 to 1024x448 and launches
+# the lookup once an iteration; the PWC family runs on local correlations
+S15_SERVE = (("separableflow", 32), ("pwcnet", 0), ("pwcnet_nodc", 0),
+             ("irr_pwc", 0), ("scopeflow", 0), ("irr_pwcnet", 0),
+             ("irr_pwcnet_irr", 0))
+S15_NAMES = tuple(name for name, _ in S15_SERVE)
+S15_BF16 = ("separableflow", "pwcnet")
+# one train step card against CPU: (model, args, the forward kernel's and
+# the backward's launches, the batch seed, the size).  PWC's and IRR's
+# losses pool the ground truth by whole ratios, so their size is a multiple
+# of 64 (128x160 fails in the JAX package as in the port).  SeparableFlow's
+# random-weight step is ill-conditioned where its U-Nets' initial flows
+# weigh in the loss: with 2 iterations one rounding of the input moves its
+# whole gradient by 0.24-1.4% on the CPU at 128x192 (seeds 6-40).  At its
+# registered 32 iterations they weigh 0.8^32-0.8^34 of the last and one
+# rounding moves it by 1.1e-4 to 6.5e-4 (seeds 1-17); seed 9 is 1.1e-4
+S15_STEP_CHECK = (("separableflow", {}, (32, 32), 9, (128, 192)),
+                  ("pwcnet", {}, (0, 0), 6, (128, 192)),
+                  ("irr_pwc", {}, (0, 0), 6, (128, 192)))
+# timed training at the first batch that fits: (model, crop, launches a
+# step); irr_pwc's loss needs a multiple of 64, so it trains at 384x512
+S15_TRAIN = (("separableflow", (TRAIN_H, TRAIN_W), (32, 32)),
+             ("irr_pwc", (384, 512), (0, 0)))
+S15_TRAIN_BATCHES = (10, 8, 6, 4, 2)
+S15_TRAIN_STEPS = 2
+# SeparableFlow's NLF-filtered volume card against CPU, of its largest
+# element: float32 sums of the rows' products in another order
+RTOL_NLF = 1e-4
+# ``local_correlation``'s output and both gradients card against CPU, of
+# each one's largest element (float32 sums of the same terms in another
+# order), at (radius, dilation, stride, channels, height, width): PWC's
+# and IRR's, FlowNetC's dilated window and LiteFlowNet's dilated and
+# strided one
+RTOL_LOCAL_CORR = 1e-5
+LOCAL_CORR_CASES = ((4, 1, 1, 32, 112, 256), (10, 2, 1, 256, 48, 64),
+                    (3, 2, 2, 64, 56, 128))
 # softsplat_average, card against CPU: float32 sums of a few terms whose
 # atomics add in no fixed order on the card
 ATOL_SPLAT = 1e-5
@@ -1000,6 +1073,54 @@ def condition_slice14(torch, name: str, model) -> None:
             conv.bias[16:20] += 40.0
 
 
+def condition_slice15(torch, name: str, model) -> None:
+    """Phase 17's models, conditioned as their CPU tests are.  SeparableFlow:
+    the flow head's last conv damped by 0.01 (32 iterations), the shift
+    regressions' 3-D convolutions by 0.1 (random ones saturate the softmax
+    over the 193 bins), seeded BatchNorm statistics, the 3-D ones too.
+    PWC-Net: its flow predictors (``predict_flow2``-``6``, ``dc_conv7``)
+    damped by 0.1 (random DenseNet decoders grow the flow level after
+    level).  IRR: the flow estimators' and context networks' last
+    convolutions by 0.1 (0.02 for the weight-shared estimator), the
+    occlusion ones and the occlusion upsampler's by 0.02 (random occlusion
+    logits grow ~10x a level and saturate the sigmoid)."""
+    def damp(conv, factor):
+        with torch.no_grad():
+            conv.weight.mul_(factor)
+            if conv.bias is not None:
+                conv.bias.mul_(factor)
+
+    if name == "separableflow":
+        damp_flow_head(model, 0.01)
+        for agg in (model.cost_agg1, model.cost_agg2):
+            for shift in (agg.shift0, agg.shift1, agg.shift2):
+                damp(shift.conv3d_2d, 0.1)
+        randomise_norms(torch, model, 17)
+        gen = torch.Generator().manual_seed(17)
+        with torch.no_grad():
+            for mod in model.modules():
+                if isinstance(mod, torch.nn.BatchNorm3d):
+                    c = mod.num_features
+                    mod.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
+                    mod.running_var.copy_(1 + 0.5 * torch.rand(
+                        c, generator=gen))
+        return
+    if name.startswith("pwcnet"):
+        for mod_name, mod in model.named_children():
+            if mod_name.startswith("predict_flow") or mod_name == "dc_conv7":
+                damp(mod, 0.1)
+        return
+    flow = 0.02 if name == "irr_pwcnet_irr" else 0.1
+    ests = model.flow_estimators
+    for est in (ests if isinstance(ests, torch.nn.ModuleList) else [ests]):
+        damp(est.conv_last[0], flow)
+    damp(model.context_networks.convs[6][0], flow)
+    if hasattr(model, "occ_estimators"):
+        damp(model.occ_estimators.conv_last[0], 0.02)
+        damp(model.occ_context_networks.convs[6][0], 0.02)
+        damp(model.occ_shuffle_upsample.out_convs[0], 0.02)
+
+
 class TopkReplay:
     """Every ``torch.topk`` of a run on the card recorded, then given to a
     run on the CPU: the quadtree attention's and SCV's selections, where a
@@ -1074,7 +1195,11 @@ def parity_weights(torch, name: str, model, images) -> None:
     MEMFOF, LLA-Flow, CSFlow, SplatFlow, ReCoVEr, Flow-Anything:
     ``condition_volume_and_backbone``.  WAFT, FlowSeek, DIP, Flow1D,
     GMFlowNet: ``condition_slice13``.  MatchFlow, SCV, MS-RAFT+, CCMR:
-    ``condition_slice14``."""
+    ``condition_slice14``.  SeparableFlow, PWC-Net, IRR:
+    ``condition_slice15``."""
+    if name in S15_NAMES:
+        condition_slice15(torch, name, model)
+        return
     if name in S14_NAMES:
         condition_slice14(torch, name, model)
         return
@@ -1174,8 +1299,9 @@ def served_model(torch, name: str, args: dict, images):
 
 def train_step_card_vs_cpu(torch, name: str, dev, args=None,
                            lookups=2, frames: int = 2,
-                           batch_seed: int = 5) -> dict:
-    """One train step of ``name`` at 128x160, batch 2, 2 iterations (or
+                           batch_seed: int = 5, size=(128, 160)) -> dict:
+    """One train step of ``name`` at 128x160 (or ``size``), batch 2, 2
+    iterations (or
     the ``args`` that set 2 decoder steps, or 2 steps a level), on the
     CPU and on the card from the same weights (``parity_weights``): the
     loss within RTOL_LOSS, the BatchNorm statistics within ATOL_BN and the
@@ -1194,7 +1320,7 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
 
     args = {"iters": 2} if args is None else args
     cpu_model = ptlflow_tpu_torch.get_model(name, args=args, device="cpu")
-    batch = train_batch(torch, batch_seed, 2, 128, 160, "cpu", frames)
+    batch = train_batch(torch, batch_seed, 2, *size, "cpu", frames)
     parity_weights(torch, name, cpu_model, batch["images"])
     expected = lookups if isinstance(lookups, tuple) else (lookups, lookups)
     gpu_model = ptlflow_tpu_torch.get_model(name, args=args)
@@ -1262,7 +1388,8 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
             + ", ".join(f"{n} {r:.2e}" for r, n in ratios[-4:])
             + f" ({sum(r > GRAD_RTOL for r, _ in ratios)} of {len(ratios)} "
             f"over {GRAD_RTOL})")
-    log(f"[4 card vs cpu] {name} train step, 2x128x160, {expected} "
+    log(f"[4 card vs cpu] {name} train step, 2x{size[0]}x{size[1]}, "
+        f"{expected} "
         f"launches: loss "
         f"{gl:.7f} on the card, {cl:.7f} on the CPU; grad norm {gn:.6f} / "
         f"{cn:.6f}; the whole gradient: max |dg| / max |g| {glob_max:.2e}, "
@@ -1477,6 +1604,11 @@ def main(argv=None) -> int:
               for dtype in (torch.float32, torch.bfloat16)]
     cases += [("neuflow2 1/16 Q=1792, 1 level, r=4",
                (1, 28, 64, 28, 64, 128, -0.1, 1.1, 1), 4, torch.float32)]
+    # phase 17's: separableflow's pyramid at 1024x448 (Q = 7168 on 56x128
+    # ... 7x16)
+    s8h, s8w = -(-H // 64) * 8, -(-W // 64) * 8
+    cases += [(f"separableflow Q={s8h * s8w}, r=4",
+               (1, s8h, s8w, s8h, s8w, 256, -0.1, 1.1), 4, torch.float32)]
     far = torch.tensor([1e7, -1e7, 3.5, -2.5e6, 2.5], device=dev)
     main_err = None
     main_inputs = {}
@@ -1533,6 +1665,12 @@ def main(argv=None) -> int:
     # 46x62 ... 5x7
     bwd_cases += [(f"streamflow train Q={3 * 4 * th * tw}, r=4",
                    (3 * 4, th, tw, th, tw, 256, -0.1, 1.1), 4,
+                   torch.float32)]
+    # separableflow's training pyramid at 368x496 (padded to 384x512),
+    # batch 10: Q = 30,720 on 48x64 ... 6x8
+    s8h, s8w = -(-TRAIN_H // 64) * 8, -(-TRAIN_W // 64) * 8
+    bwd_cases += [(f"separableflow train Q={10 * s8h * s8w}, r=4",
+                   (10, s8h, s8w, s8h, s8w, 256, -0.1, 1.1), 4,
                    torch.float32)]
     worst_bwd = {torch.float32: 0.0, torch.bfloat16: 0.0}
     train_inputs, bwd_err, bwd_gmax = None, None, None
@@ -2075,6 +2213,18 @@ def main(argv=None) -> int:
     for name, path in s14_train_paths.items():
         launches[path] = sum(s14["train"][name]["lookup"])
 
+    # ---------------------------------------------------------------- 17
+    t17 = time.perf_counter()
+    s15 = slice15_phase(torch, dev, tag)
+    log(f"[17] {time.perf_counter() - t17:.1f} s")
+    launches.update(s15["launches"])
+    s15_train_paths = {
+        name: (f"{name} train, {S15_TRAIN_STEPS} steps at {rec['size'][1]}x"
+               f"{rec['size'][0]}, batch {rec['batch']}")
+        for name, rec in s15["train"].items()}
+    for name, path in s15_train_paths.items():
+        launches[path] = sum(s15["train"][name]["lookup"])
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -2112,6 +2262,7 @@ def main(argv=None) -> int:
         "volume_and_backbone_shapes": vb["kernels"]["corr_lookup"],
         "slice13_shapes": s13["kernels"]["corr_lookup"],
         "slice14_shapes": s14["kernels"]["corr_lookup"],
+        "slice15_shapes": s15["kernels"]["corr_lookup"],
         "invalid_profiler_readings": [
             r for r in INVALID_READINGS if r["kernel"] == "corr_lookup"],
     }, {
@@ -2153,7 +2304,12 @@ def main(argv=None) -> int:
                check["launches"][1]
                for name, check in s14["train_step_card_vs_cpu"].items()},
             **{path: sum(s14["train"][name]["lookup_backward"])
-               for name, path in s14_train_paths.items()}),
+               for name, path in s14_train_paths.items()},
+            **{f"{name} train step at {size[1]}x{size[0]}":
+               s15["train_step_card_vs_cpu"][name]["launches"][1]
+               for name, _, _, _, size in S15_STEP_CHECK},
+            **{path: sum(s15["train"][name]["lookup_backward"])
+               for name, path in s15_train_paths.items()}),
         "max_abs_err": bwd_err,
         "max_abs_grad": bwd_gmax,
         "ms": bwd_ms,
@@ -2172,6 +2328,7 @@ def main(argv=None) -> int:
             vb["kernels"]["corr_lookup_backward"],
         "slice13_shapes": s13["kernels"]["corr_lookup_backward"],
         "slice14_shapes": s14["kernels"]["corr_lookup_backward"],
+        "slice15_shapes": s15["kernels"]["corr_lookup_backward"],
         "profiler_readings_raft_train_shape": bwd_readings,
         "invalid_profiler_readings": [
             r for r in INVALID_READINGS
@@ -2201,6 +2358,8 @@ def main(argv=None) -> int:
     log(json.dumps({"slice13": {k: v for k, v in s13.items()
                                 if k != "kernels"}, "card": tag}))
     log(json.dumps({"slice14": {k: v for k, v in s14.items()
+                                if k != "kernels"}, "card": tag}))
+    log(json.dumps({"slice15": {k: v for k, v in s15.items()
                                 if k != "kernels"}, "card": tag}))
     log(tag)
     log(json.dumps({"kernels": kernels}))
@@ -2727,7 +2886,12 @@ def check_flows(torch, name: str, out, shape) -> None:
         raise AssertionError(f"{name}: flows {tuple(flows.shape)}")
     if not torch.isfinite(flows).all():
         raise AssertionError(f"{name}: non-finite flows")
-    if any(v.grad_fn is not None for v in out.values()):
+    def tensors(v):  # IRR's occ_preds: a list of lists of tensors
+        if isinstance(v, (list, tuple)):
+            return [t for x in v for t in tensors(x)]
+        return [v]
+
+    if any(t.grad_fn is not None for v in out.values() for t in tensors(v)):
         raise AssertionError(f"{name}: the eval forward built an autograd "
                              f"graph")
 
@@ -2829,14 +2993,17 @@ def train_at_largest_batch(torch, dev, tag: str, model, tx, batch_sizes,
 def time_forward(torch, model, images, label: str, tag: str, depth: str,
                  phase: int, out: dict, kernel_names=None,
                  reps: int = 10, warmups: int = 3,
-                 profiled: bool = True, runs: int = 3) -> None:
+                 profiled: bool = True, runs: int = 3,
+                 ranges=(), profile_runs: int = 2) -> None:
     """The eval forward of ``images``: ``warmups`` warm-ups, then the
     median of ``runs`` runs of ``reps`` forwards by CUDA events; the peak
     memory of
     those forwards (each frees what it allocates), and above what was
     allocated before them (the model, and what earlier phases still hold);
     where ``profiled``, a profile
-    (``profile_forward``, with the kernel times by ``kernel_names``).
+    (``profile_forward`` of ``profile_runs`` forwards, with the kernel
+    times by ``kernel_names`` and the launches under the
+    ``record_function`` ``ranges``).
     Written into ``out`` under ``label``."""
     for _ in range(warmups):
         model({"images": images})
@@ -2863,7 +3030,7 @@ def time_forward(torch, model, images, label: str, tag: str, depth: str,
     if profiled:
         out["profile"][label] = profile_forward(
             torch, model, images, label, tag, median, phase=phase,
-            kernel_names=kernel_names)
+            kernel_names=kernel_names, ranges=ranges, runs=profile_runs)
 
 
 def lookup_record(torch, pyr, coords, radius: int, err, flush) -> dict:
@@ -2973,7 +3140,9 @@ def flowformer_phase(torch, dev, tag: str, ff_lookup) -> dict:
                 if not cast_to_bf16(served, name):
                     raise AssertionError(f"{name}: not on the allow-list")
             time_forward(torch, served, images, f"{name} {mode}", tag,
-                         f"{FF_DEPTH} decoder steps", 10, out)
+                         f"{FF_DEPTH} decoder steps", 10, out,
+                         reps=FWD_REPS, warmups=FWD_WARMUPS,
+                         profiled=False)
             del served
         del model
 
@@ -3083,9 +3252,8 @@ def sk_family_phase(torch, dev, tag: str) -> dict:
     sequence at H x W, each warm-started from the last, with one lookup
     launch a decoder step and no autograd graph; streams 4 frames with
     ``meta`` through ``memflow``, whose memory must count 1, 2, 2, 2
-    frames; times and profiles each fp32 forward (the depthwise
-    convolutions and the softmaxes by name) and ``memflow``'s ``validate
-    --bf16`` cast; holds the card against the CPU at 256x320 (the
+    frames; times each fp32 forward and ``memflow``'s ``validate --bf16``
+    cast; holds the card against the CPU at 256x320 (the
     ``memflow`` stream frame by frame) and one train step at 128x160 of
     ``skflow``, ``memflow`` and ``lcv_raft``; trains ``memflow`` at
     TRAIN_H x TRAIN_W at the first of SK_TRAIN_BATCHES that fits."""
@@ -3100,7 +3268,6 @@ def sk_family_phase(torch, dev, tag: str) -> dict:
     out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
            "peak_gib": {}, "forward_gib": {}, "launches": {},
            "card_vs_cpu_px": {}}
-    named = {"depthwise conv": "depthwise", "softmax": "softmax"}
     # consecutive frames of one sequence moving (2, 1) px a frame
     frames = smooth_frames(41, H, W, 5, shift=(2, 1))
     calib = IOAdapter(device=dev).prepare_inputs(frames[:2])["images"]
@@ -3112,7 +3279,8 @@ def sk_family_phase(torch, dev, tag: str) -> dict:
         out["launches"][f"{name} serve, 3 pairs warm-started"] = n
 
         time_forward(torch, model, x["images"], f"{name} fp32", tag,
-                     f"{depth} steps", 11, out, named, reps=5, warmups=2)
+                     f"{depth} steps", 11, out,
+                     reps=FWD_REPS, warmups=FWD_WARMUPS, profiled=False)
         if name == "memflow":
             # the memory stream at full size: 4 pairs with meta
             corr.corr_lookup_kernel.launches = 0
@@ -3136,7 +3304,8 @@ def sk_family_phase(torch, dev, tag: str) -> dict:
             if not cast_to_bf16(cast, name):
                 raise AssertionError(f"{name}: not on the allow-list")
             time_forward(torch, cast, x["images"], f"{name} bf16 cast", tag,
-                         f"{depth} steps", 11, out, named, reps=5, warmups=2)
+                         f"{depth} steps", 11, out,
+                         reps=FWD_REPS, warmups=FWD_WARMUPS, profiled=False)
             del cast
         log(f"[11 serve] {name}: {time.perf_counter() - t0:.1f} s with its "
             f"timing")
@@ -3259,9 +3428,8 @@ def recurrent_pyramid_phase(torch, dev, tag: str) -> dict:
     Serves 3 consecutive warm-started pairs at H x W through each, with one
     lookup launch a step (a ``CorrBlock`` prepared once a level) and no
     autograd graph; ``dpflow`` also at SPRING_H x SPRING_W (4 levels,
-    SPRING_LOOKUPS lookups); times and profiles each fp32 forward with its
-    peak memory (the depthwise convolutions by name) and ``dpflow``'s
-    ``validate --bf16`` cast; holds the card against the CPU at 256x320
+    SPRING_LOOKUPS lookups); times each fp32 forward with its peak memory
+    and ``dpflow``'s ``validate --bf16`` cast; holds the card against the CPU at 256x320
     and one train step at 128x160 (2 steps a level) of ``rapidflow``,
     ``rpknet`` and ``dpflow``; trains ``rapidflow`` and ``dpflow`` at
     RP_TRAIN_H x RP_TRAIN_W as their chairs configs set it (RP_TRAIN); and
@@ -3278,7 +3446,6 @@ def recurrent_pyramid_phase(torch, dev, tag: str) -> dict:
     out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
            "peak_gib": {}, "forward_gib": {}, "launches": {},
            "card_vs_cpu_px": {}}
-    named = {"depthwise conv": "depthwise"}
     # consecutive frames of one sequence moving (2, 1) px a frame
     frames = smooth_frames(51, H, W, 4, shift=(2, 1))
     calib = IOAdapter(device=dev).prepare_inputs(frames[:2])["images"]
@@ -3289,14 +3456,15 @@ def recurrent_pyramid_phase(torch, dev, tag: str) -> dict:
                               (1, 1, 2, H, W), 12)
         out["launches"][f"{name} serve, 3 pairs warm-started"] = n
         time_forward(torch, model, x["images"], f"{name} fp32", tag,
-                     f"{depth} lookups", 12, out, named, reps=5, warmups=2)
+                     f"{depth} lookups", 12, out,
+                     reps=FWD_REPS, warmups=FWD_WARMUPS, profiled=False)
         if name == "dpflow":
             cast = copy.deepcopy(model)
             if not cast_to_bf16(cast, name):
                 raise AssertionError(f"{name}: not on the allow-list")
             time_forward(torch, cast, x["images"], f"{name} bf16 cast", tag,
-                         f"{depth} lookups", 12, out, named, reps=5,
-                         warmups=2)
+                         f"{depth} lookups", 12, out, reps=FWD_REPS,
+                         warmups=FWD_WARMUPS, profiled=False)
             del cast
             # Spring's size: 4 levels, stride 64
             spring = smooth_frames(52, SPRING_H, SPRING_W, 3, shift=(3, 2))
@@ -3311,8 +3479,8 @@ def recurrent_pyramid_phase(torch, dev, tag: str) -> dict:
             # at the 1/8 level (the lookup's output and the flow, random)
             t1 = time.perf_counter()
             time_forward(torch, model, x["images"], f"{name} fp32 1080p",
-                         tag, f"{SPRING_LOOKUPS} lookups", 12, out, named,
-                         reps=1, warmups=0, profiled=False)
+                         tag, f"{SPRING_LOOKUPS} lookups", 12, out,
+                         reps=1, warmups=0, profiled=False, runs=1)
             g = torch.Generator().manual_seed(12)
             h8, w8 = -(-SPRING_H // 64) * 8, -(-SPRING_W // 64) * 8
             # net, inp (the registered 128 each), corr, flow
@@ -3326,10 +3494,7 @@ def recurrent_pyramid_phase(torch, dev, tag: str) -> dict:
                 step_ms = timed_ms(torch, lambda: update_step(None), 3)
                 label = f"{name} update step at 1080p's 1/8 level"
                 out["forward_ms"][label] = step_ms
-                out["profile"][label] = profile_forward(
-                    torch, update_step, None, label, tag, step_ms, phase=12,
-                    kernel_names=named)
-            log(f"[12 forward] {name} at 1080p timed and profiled in "
+            log(f"[12 forward] {name} at 1080p timed in "
                 f"{time.perf_counter() - t1:.1f} s")
         log(f"[12 serve] {name}: {time.perf_counter() - t0:.1f} s with its "
             f"timing")
@@ -3422,9 +3587,8 @@ def video_and_attention_phase(torch, dev, tag: str) -> dict:
     warm-started from the last's ``flow_small``, ``neuflow2`` cold pairs,
     VideoFlow's 3 and 5 frames with their backward flows, StreamFlow's 4
     frames and 3 flows), counting the lookup launches of each forward and
-    asserting no autograd graph; times and profiles each fp32 forward
-    (CRAFT's attention GEMMs and the depthwise convolutions by name) with
-    its peak memory and ``craft``'s ``validate --bf16`` cast; holds the
+    asserting no autograd graph; times each fp32 forward with its peak
+    memory and ``craft``'s ``validate --bf16`` cast; holds the
     card against the CPU at 256x320 (the registered depths); one train
     step at 128x160 card against CPU of ``craft`` and ``streamflow`` (2
     iterations) and ``neuflow2`` (1 + 2); trains ``craft`` (12
@@ -3442,11 +3606,6 @@ def video_and_attention_phase(torch, dev, tag: str) -> dict:
     out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
            "peak_gib": {}, "forward_gib": {}, "launches": {},
            "card_vs_cpu_px": {}}
-    # cuBLAS's GEMMs, not cuDNN's convolutions (implicit GEMMs too)
-    gemm = ("gemm", ("fprop", "dgrad", "wgrad", "conv", "implicit"))
-    named = {"craft": {"attention GEMMs": gemm, "softmax": "softmax"},
-             "neuflow2": {"GEMMs": gemm, "softmax": "softmax"}}
-    depthwise = {"depthwise conv": "depthwise", "GEMMs": gemm}
     # 7 consecutive frames of one sequence moving (2, 1) px a frame
     frames = smooth_frames(61, H, W, 7, shift=(2, 1))
     for name, depth, window in VA_SERVE:
@@ -3459,15 +3618,15 @@ def video_and_attention_phase(torch, dev, tag: str) -> dict:
                               warm=name == "craft")
         out["launches"][f"{name} serve, 3 windows"] = n
         time_forward(torch, model, x["images"], f"{name} fp32", tag,
-                     f"{depth} lookups", 13, out, named.get(name, depthwise),
-                     reps=5, warmups=2)
+                     f"{depth} lookups", 13, out,
+                     reps=FWD_REPS, warmups=FWD_WARMUPS, profiled=False)
         if name == "craft":
             cast = copy.deepcopy(model)
             if not cast_to_bf16(cast, name):
                 raise AssertionError(f"{name}: not on the allow-list")
             time_forward(torch, cast, x["images"], f"{name} bf16 cast", tag,
-                         f"{depth} lookups", 13, out, named[name], reps=5,
-                         warmups=2)
+                         f"{depth} lookups", 13, out,
+                         reps=FWD_REPS, warmups=FWD_WARMUPS, profiled=False)
             del cast
         log(f"[13 serve] {name}: {time.perf_counter() - t0:.1f} s with its "
             f"timing")
@@ -3587,9 +3746,8 @@ def volume_and_backbone_phase(torch, dev, tag: str) -> dict:
     pairs each warm-started from the last's ``flow_small``; ``memfof`` 3
     frames at 1080x1920 and 436x1024; ``splatflow`` 3 frames at
     375x1242), counting the lookup launches of each forward and asserting
-    no autograd graph; times and profiles each fp32 forward (cuBLAS GEMMs
-    by name: LLA-Flow's ShiftLSA volume; depthwise convolutions:
-    ReCoVEr-CX) with its peak memory, and the ``validate --bf16`` casts of
+    no autograd graph; times each fp32 forward with its peak memory, and
+    the ``validate --bf16`` casts of
     ``memfof`` and ``csflow``; holds the card against the CPU at 256x320
     for every name; holds both kernels against their plain versions on
     MEMFOF's 1080p levels (Q = 8160 on 68x120 ... 8x15) and on CSFlow's
@@ -3612,10 +3770,6 @@ def volume_and_backbone_phase(torch, dev, tag: str) -> dict:
     out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
            "peak_gib": {}, "forward_gib": {}, "launches": {},
            "card_vs_cpu_px": {}}
-    gemm = ("gemm", ("fprop", "dgrad", "wgrad", "conv", "implicit"))
-    named = {"llaflow": {"GEMMs": gemm, "softmax": "softmax"},
-             "llaflow_raft": {"GEMMs": gemm},
-             "recover_cx": {"depthwise conv": "depthwise", "GEMMs": gemm}}
     model, built = None, None
     for name, depth, window, warm, (h, w) in VB_SERVE:
         t0 = time.perf_counter()
@@ -3638,15 +3792,15 @@ def volume_and_backbone_phase(torch, dev, tag: str) -> dict:
         label = f"{name} fp32" + (" 1080p" if (h, w) == (SPRING_H, SPRING_W)
                                   else "")
         time_forward(torch, model, x["images"], label, tag,
-                     f"{depth} lookups", 14, out, named.get(name),
-                     reps=5, warmups=2)
+                     f"{depth} lookups", 14, out,
+                     reps=FWD_REPS, warmups=FWD_WARMUPS, profiled=False)
         if name in ("memfof", "csflow") and (h, w) == (H, W):
             cast = copy.deepcopy(model)
             if not cast_to_bf16(cast, name):
                 raise AssertionError(f"{name}: not on the allow-list")
             time_forward(torch, cast, x["images"], f"{name} bf16 cast", tag,
-                         f"{depth} lookups", 14, out, named.get(name),
-                         reps=5, warmups=2)
+                         f"{depth} lookups", 14, out,
+                         reps=FWD_REPS, warmups=FWD_WARMUPS, profiled=False)
             del cast
         log(f"[14 serve] {name} at {w}x{h}: {time.perf_counter() - t0:.1f} "
             f"s with its timing")
@@ -3791,8 +3945,8 @@ def slice13_phase(torch, dev, tag: str) -> dict:
     warm-started from the last's ``flow_small``; ``flow1d`` also at
     1920x1080), counting the lookup launches of each forward (4 for
     FlowSeek, 32 for GMFlowNet, 0 elsewhere) and asserting no autograd
-    graph; times and profiles each fp32 forward with its peak memory (at
-    1080p one timed forward, and the profile of one update step),
+    graph; times each fp32 forward with its peak memory (at 1080p one
+    timed forward, and one update step),
     and the ``validate --bf16`` casts of the allow-list's names
     (S13_BF16);
     holds the card against the CPU at 256x320 for every name (GMFlowNet on
@@ -3812,11 +3966,6 @@ def slice13_phase(torch, dev, tag: str) -> dict:
     out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
            "peak_gib": {}, "forward_gib": {}, "launches": {},
            "card_vs_cpu_px": {}, "match_differences": {}}
-    gemm = ("gemm", ("fprop", "dgrad", "wgrad", "conv", "implicit"))
-    # the ViTs' fused attention (scaled_dot_product_attention), the GEMMs
-    # of the other attentions and of the linear layers, the softmaxes
-    named = {"GEMMs": gemm, "fused attention": "attention",
-             "softmax": "softmax"}
     # the models whose flows start elsewhere than at the flow head's steps:
     # DIP at a random field of up to 256 px, GMFlowNet at its matches
     undamped = ("dip", "gmflownet", "gmflownet_mix")
@@ -3848,9 +3997,10 @@ def slice13_phase(torch, dev, tag: str) -> dict:
         # budget: the served pairs are the warm-ups, one timed forward,
         # and the profile is of one update step
         time_forward(torch, model, x["images"], label, tag,
-                     f"{depth} lookups", 15, out, named,
-                     reps=1 if big else 5, warmups=0 if big else 2,
-                     profiled=not big, runs=1 if big else 3)
+                     f"{depth} lookups", 15, out,
+                     reps=1 if big else FWD_REPS,
+                     warmups=0 if big else FWD_WARMUPS,
+                     profiled=False, runs=1 if big else 3)
         if big:
             # the profile of one update step at 1080p's 1/8 level (136x240;
             # the correlation windows and the state random), as phase 12
@@ -3868,16 +4018,13 @@ def slice13_phase(torch, dev, tag: str) -> dict:
                 step_ms = timed_ms(torch, lambda: update_step(None), 3)
                 step_label = f"{name} update step at 1080p's 1/8 level"
                 out["forward_ms"][step_label] = step_ms
-                out["profile"][step_label] = profile_forward(
-                    torch, update_step, None, step_label, tag, step_ms,
-                    phase=15, kernel_names=named)
         if name in S13_BF16:
             cast = copy.deepcopy(model)
             if not cast_to_bf16(cast, name):
                 raise AssertionError(f"{name}: not on the allow-list")
             time_forward(torch, cast, x["images"], f"{name} bf16 cast", tag,
-                         f"{depth} lookups", 15, out, named, reps=5,
-                         warmups=2)
+                         f"{depth} lookups", 15, out, reps=FWD_REPS,
+                         warmups=FWD_WARMUPS, profiled=False)
             del cast
         log(f"[15 serve] {name} at {w}x{h}: {time.perf_counter() - t0:.1f} "
             f"s with its timing")
@@ -4031,9 +4178,8 @@ def slice14_phase(torch, dev, tag: str) -> dict:
     consecutive pairs of one sequence at 436x1024 through each, each
     warm-started from the last's ``flow_small``, counting 32 lookup
     launches a forward for MatchFlow and none for SCV and the AltCorrBlock
-    defaults, and asserting no autograd graph; times and profiles each
-    fp32 forward with its peak memory (the top-k, sort, gather and
-    indexing kernels by name; the AltCorrBlock lookups' device ms by CUDA
+    defaults, and asserting no autograd graph; times each fp32 forward
+    with its peak memory (the AltCorrBlock lookups' device ms by CUDA
     events around each call); holds the card against the CPU at 256x320
     for every name, the CPU taking the card's top-k selections
     (``TopkReplay``) and the differing selections counted; builds
@@ -4055,14 +4201,6 @@ def slice14_phase(torch, dev, tag: str) -> dict:
            "peak_gib": {}, "forward_gib": {}, "launches": {},
            "card_vs_cpu_px": {}, "topk_rows_differing": {},
            "alt_corr_ms": {}, "dense_vs_alt_px": {}}
-    gemm = ("gemm", ("fprop", "dgrad", "wgrad", "conv", "implicit"))
-    # the quadtree attention's and SCV's top-k (sbtopk::gatherTopK), the
-    # quadtree's candidate gathers (torch.gather), AltCorrBlock's patch
-    # gathers (advanced indexing) and its batched dot products (GEMVs)
-    named = {"GEMMs": gemm, "top-k": "topk", "sort": "sort",
-             "torch.gather": "scatter_gather",
-             "index gathers": "index_elementwise", "GEMVs": "gemvx",
-             "softmax": "softmax"}
     dense_depth = dict(S14_DENSE)
     frames = smooth_frames(161, H, W, 4, shift=(2, 1))
     calib_frames = smooth_frames(162, H, W, 2, shift=(2, 1))
@@ -4080,11 +4218,9 @@ def slice14_phase(torch, dev, tag: str) -> dict:
         if n != 3 * depth:
             raise AssertionError(f"{key}: {n} lookup launches")
         label = f"{name} fp32"
-        # the AltCorrBlock models take 0.4-1 s a forward: 2 a timed run
-        slow = name in dense_depth
         time_forward(torch, model, x["images"], label, tag,
-                     f"{depth} lookups", 16, out, named,
-                     reps=2 if slow else 5, warmups=1 if slow else 2)
+                     f"{depth} lookups", 16, out,
+                     reps=FWD_REPS, warmups=FWD_WARMUPS, profiled=False)
         if name in dense_depth:
             ms, calls = alt_corr_ms(torch, model, x["images"])
             fwd_ms = out["forward_ms"][label]
@@ -4233,20 +4369,348 @@ def slice14_phase(torch, dev, tag: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def timed_spans(torch, targets):
+    """Within the block, each call of the functions ``targets`` ((module,
+    attribute, label) each) runs in a ``record_function`` range named by
+    its label and between two CUDA events (its kernels run in order on the
+    one stream), appended to the yielded {label: [(start, end), ...]}."""
+    from torch.profiler import record_function
+
+    spans = {label: [] for _, _, label in targets}
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+
+    def wrap(fn, label):
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with record_function(label):
+                start.record()
+                res = fn(*args, **kwargs)
+                end.record()
+            spans[label].append((start, end))
+            return res
+        return timed
+
+    for (mod, attr, fn), (_, _, label) in zip(saved, targets):
+        setattr(mod, attr, wrap(fn, label))
+    try:
+        yield spans
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def span_ms(torch, model, images, spans) -> dict:
+    """Device ms and calls of each of ``timed_spans``' functions within
+    one more eval forward of ``images``."""
+    for recs in spans.values():
+        recs.clear()
+    model({"images": images})
+    torch.cuda.synchronize()
+    return {label: {"ms": sum(a.elapsed_time(b) for a, b in recs),
+                    "calls": len(recs)} for label, recs in spans.items()}
+
+
+def local_corr_card_vs_cpu(torch, dev) -> dict:
+    """``local_correlation`` (unnormalised, as PWC calls it) and the
+    gradients of both maps under a random cotangent, card against CPU at
+    LOCAL_CORR_CASES, batch 1; the largest difference of the three, of
+    each one's largest element, by case."""
+    from ptlflow_tpu_torch.ops import local_correlation
+
+    g = torch.Generator().manual_seed(173)
+    res = {}
+    for d, dil, st, c, h, w in LOCAL_CORR_CASES:
+        f1, f2 = (torch.randn(1, c, h, w, generator=g) for _ in range(2))
+        cot = torch.randn(1, (2 * d + 1) ** 2, -(-h // st), -(-w // st),
+                          generator=g)
+        got = []
+        for where in (dev, torch.device("cpu")):
+            a, b = (t.to(where).requires_grad_() for t in (f1, f2))
+            o = local_correlation(a, b, d, normalize=False, dilation=dil,
+                                  stride=st)
+            grads = torch.autograd.grad((o * cot.to(where)).sum(), (a, b))
+            got.append([t.detach().cpu() for t in (o, *grads)])
+        rel = max((x - y).abs().max().item() / y.abs().max().item()
+                  for x, y in zip(*got))
+        key = f"d={d} dilation={dil} stride={st} {c}x{h}x{w}"
+        res[key] = rel
+        log(f"[17 card vs cpu] local_correlation {key}: output and both "
+            f"gradients max |d| / max |v| {rel:.3e} (tolerance "
+            f"{RTOL_LOCAL_CORR})")
+        if not rel <= RTOL_LOCAL_CORR:
+            raise AssertionError(f"local_correlation {key}: {rel}")
+    return res
+
+
+def slice15_phase(torch, dev, tag: str) -> dict:
+    """Phase 17: SeparableFlow, PWC-Net (+nodc) and IRR (``irr_pwc``,
+    ``scopeflow``, ``irr_pwcnet``, ``irr_pwcnet_irr``) on the card at
+    their registered depths (S15_SERVE), fp32, TF32 off.  Serves 3
+    consecutive pairs of one sequence at 436x1024 through each, cold (none
+    reads a previous prediction), counting 32 lookup launches a forward for
+    SeparableFlow and none for the others, checking ``irr_pwc``'s and
+    ``scopeflow``'s backward flows and occlusions; times and profiles each
+    fp32 forward with its peak memory, with the device ms, calls and
+    launches of SeparableFlow's SGA and NLF recursions and of the PWC
+    family's ``local_correlation`` by CUDA events around their calls and
+    ``record_function`` ranges in the profile (``timed_spans``), and the
+    ``validate --bf16`` casts of S15_BF16;
+    holds the card against the CPU at 256x320 for every name
+    (SeparableFlow's NLF-filtered volume and initial flow too), and
+    ``local_correlation`` with its gradients at LOCAL_CORR_CASES; one train
+    step card against CPU (S15_STEP_CHECK); trains
+    S15_TRAIN at the first of S15_TRAIN_BATCHES that fits (unprofiled);
+    and both kernels against their plain versions and timed at
+    SeparableFlow's pyramid at 1024x448 (Q = 7168 on 56x128 ... 7x16) and
+    its training pyramid (Q = 3072 x batch on 48x64 ... 6x8)."""
+    import copy
+    import importlib
+
+    import ptlflow_tpu_torch
+    from ptlflow_tpu_torch.ops import correlation as corr
+    from ptlflow_tpu_torch.parallel import train as ttrain
+    from ptlflow_tpu_torch.scripts.validate import cast_to_bf16
+    from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+
+    sf = importlib.import_module(
+        "ptlflow_tpu_torch.models.separableflow.separableflow")
+    ca = importlib.import_module(
+        "ptlflow_tpu_torch.models.separableflow.cost_agg")
+    pwc = importlib.import_module("ptlflow_tpu_torch.models.pwcnet.pwcnet")
+    irrm = importlib.import_module(
+        "ptlflow_tpu_torch.models.irr.pwc_modules")
+    spans = {"separableflow": [(ca, "sga", "sga"), (sf, "nlf_iter", "nlf")],
+             "pwc": [(pwc, "local_correlation", "local_correlation")],
+             "irr": [(irrm, "local_correlation", "local_correlation")]}
+    out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
+           "peak_gib": {}, "forward_gib": {}, "launches": {},
+           "spans": {}, "card_vs_cpu_px": {}, "separableflow_card_vs_cpu":
+           {}}
+    gemm = ("gemm", ("fprop", "dgrad", "wgrad", "conv", "implicit"))
+    # cuBLAS (the NLF rows' products, the volume), cuDNN's implicit-GEMM
+    # convolutions, the recursions' elementwise and reduction kernels
+    named = {"GEMMs": gemm, "cuDNN fprop": "fprop",
+             "elementwise": "elementwise_kernel", "reductions": "reduce",
+             "cat": "CatArrayBatchedCopy"}
+    frames = smooth_frames(171, H, W, 4, shift=(2, 1))
+    calib = smooth_frames(172, H, W, 2, shift=(2, 1))
+    for name, depth in S15_SERVE:
+        t0 = time.perf_counter()
+        model = ptlflow_tpu_torch.get_model(name)
+        parity_weights(torch, name, model, None)
+        n, x = serve_sequence(torch, name, model, frames, depth,
+                              (1, 1, 2, H, W), 17, window=2, warm=False)
+        key = f"{name} serve at {W}x{H}, 3 pairs"
+        out["launches"][key] = n
+        if n != 3 * depth:
+            raise AssertionError(f"{key}: {n} lookup launches")
+        if name in ("irr_pwc", "scopeflow"):
+            adapter = IOAdapter(model)
+            res = adapter.unscale(model(adapter.prepare_inputs(calib)))
+            check_flows(torch, name, {"flows": res["flows_b"]},
+                        (1, 1, 2, H, W))
+            for k in ("occs", "occs_b"):
+                occ = res[k]
+                if (tuple(occ.shape) != (1, 1, 1, H, W)
+                        or not (0 <= occ.min() <= occ.max() <= 1)):
+                    raise AssertionError(f"{name}: {k} {tuple(occ.shape)} "
+                                         f"in [{occ.min()}, {occ.max()}]")
+            log(f"[17 serve] {name}: flows_b {tuple(res['flows_b'].shape)} "
+                f"finite, occs and occs_b {tuple(res['occs'].shape)} in "
+                f"[{res['occs'].min().item():.3f}, "
+                f"{res['occs'].max().item():.3f}] and "
+                f"[{res['occs_b'].min().item():.3f}, "
+                f"{res['occs_b'].max().item():.3f}]")
+        label = f"{name} fp32"
+        kind = ("separableflow" if name == "separableflow" else "pwc"
+                if name.startswith("pwc") else "irr")
+        with timed_spans(torch, spans[kind]) as recs:
+            time_forward(torch, model, x["images"], label, tag,
+                         f"{depth} lookups", 17, out, named,
+                         reps=FWD_REPS, warmups=FWD_WARMUPS,
+                         ranges=list(recs), profile_runs=1)
+            rec = span_ms(torch, model, x["images"], recs)
+        prof = out["profile"][label]
+        for span, r in rec.items():
+            r["launches"] = prof["range_launches"][span]
+            r["kernel_ms"] = prof["range_kernel_ms"][span]
+        out["spans"][label] = rec
+        fwd_ms = out["forward_ms"][label]
+        for span, r in rec.items():
+            log(f"[17 forward] [{tag}] {label}: {span} {r['calls']} calls, "
+                f"{r['ms']:.3f} ms stream-elapsed by CUDA events around them "
+                f"(the card's idle gaps included; {r['ms'] / fwd_ms:.1%} of "
+                f"the {fwd_ms:.3f} ms forward), {fmt_ms(r['kernel_ms'])} of "
+                f"kernel time under them by the profiler, {r['launches']} "
+                f"kernel launches")
+        if name in S15_BF16:
+            cast = copy.deepcopy(model)
+            if not cast_to_bf16(cast, name):
+                raise AssertionError(f"{name}: not on the allow-list")
+            time_forward(torch, cast, x["images"], f"{name} bf16 cast", tag,
+                         f"{depth} lookups", 17, out, named,
+                         reps=FWD_REPS, warmups=FWD_WARMUPS, profiled=False)
+            del cast
+        log(f"[17 serve] {name}: {time.perf_counter() - t0:.1f} s with its "
+            f"timing")
+        del model, x
+        torch.cuda.empty_cache()
+
+    # card against CPU at 256x320, the registered depths; SeparableFlow's
+    # NLF-filtered volume and initial flow too
+    t0 = time.perf_counter()
+    pair = smooth_frames(7, 256, 320, 2, shift=(3, 2))
+    x = IOAdapter(device="cpu").prepare_inputs(pair)
+    xd = x["images"].to(dev)
+    nlf = sf.nlf_volume
+    for name in S15_NAMES:
+        gpu_model, cpu_model = card_and_cpu(torch, name, xd, served=False)
+        seen = {}
+        if name == "separableflow":
+            def keep(corr_, guid, where=seen):
+                res = nlf(corr_, guid)
+                where["nlf"] = res.detach().cpu()
+                return res
+
+            def init(mod, args, res, where=seen):
+                where.setdefault("init", []).append(res[-2].detach().cpu())
+
+            sf.nlf_volume = keep
+            hooks = [m.register_forward_hook(init) for model in (
+                gpu_model, cpu_model) for m in (model.cost_agg1,
+                                                model.cost_agg2)]
+        try:
+            got = gpu_model({"images": xd})["flows"].cpu()
+            card = dict(seen)
+            seen.clear()
+            want = cpu_model(x)["flows"]
+        finally:
+            sf.nlf_volume = nlf
+            if name == "separableflow":
+                for h in hooks:
+                    h.remove()
+        diff = (got - want).abs().max().item()
+        out["card_vs_cpu_px"][name] = diff
+        log(f"[17 card vs cpu] {name} 256x320: max |dflow| {diff:.3e} px "
+            f"(flow up to {want.abs().max().item():.2f} px, tolerance "
+            f"{ATOL_CARD_CPU_PX} px)")
+        if not diff <= ATOL_CARD_CPU_PX:
+            raise AssertionError(f"{name}: card and CPU differ by {diff} px")
+        if name == "separableflow":
+            vol = (card["nlf"] - seen["nlf"]).abs().max().item() / max(
+                seen["nlf"].abs().max().item(), 1e-30)
+            fi = max((a - b).abs().max().item()
+                     for a, b in zip(card["init"], seen["init"]))
+            out["separableflow_card_vs_cpu"] = {"nlf_rel": vol,
+                                                "flow_init_px": fi}
+            log(f"[17 card vs cpu] separableflow 256x320: NLF-filtered "
+                f"volume {tuple(seen['nlf'].shape)} max |d| / max |v| "
+                f"{vol:.3e} (tolerance {RTOL_NLF}); the U-Nets' initial "
+                f"flow (u, v at 8x) max |d| {fi:.3e} px (tolerance "
+                f"{ATOL_CARD_CPU_PX} px)")
+            if not (vol <= RTOL_NLF and fi <= ATOL_CARD_CPU_PX):
+                raise AssertionError(f"separableflow: NLF {vol}, initial "
+                                     f"flow {fi} px")
+        del cpu_model, gpu_model, got, want
+    del xd
+    out["local_corr_card_vs_cpu"] = local_corr_card_vs_cpu(torch, dev)
+    log(f"[17 card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # one train step card against CPU
+    t0 = time.perf_counter()
+    out["train_step_card_vs_cpu"] = {
+        name: train_step_card_vs_cpu(torch, name, dev, args, launches,
+                                     batch_seed=seed, size=size)
+        for name, args, launches, seed, size in S15_STEP_CHECK}
+    log(f"[17 train step card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # training at the first batch that fits
+    out["train"] = {}
+    for name, size, launches in S15_TRAIN:
+        t0 = time.perf_counter()
+        model = ptlflow_tpu_torch.get_model(name)
+        parity_weights(torch, name, model, None)
+        tx = ttrain.make_optimizer(lr=4e-4, wdecay=1e-4, total_steps=120000,
+                                   pct_start=0.05, grad_clip=1.0)
+        out["train"][name] = train_at_largest_batch(
+            torch, dev, tag, model, tx, S15_TRAIN_BATCHES, S15_TRAIN_STEPS,
+            launches[0], name, 17, size=size, level_shapes=lambda b: [],
+            profile_runs=0, launches=launches)
+        out["train"][name]["size"] = list(size)
+        log(f"[17 train] {name}: {time.perf_counter() - t0:.1f} s")
+        del model, tx
+        torch.cuda.empty_cache()
+
+    # both kernels: the forward at separableflow's pyramid at 1024x448, the
+    # backward at its training pyramid at the batch that fit
+    t0 = time.perf_counter()
+    flush = flushes(torch, dev)["dirty"]
+    g = torch.Generator().manual_seed(17)
+    out["kernels"] = {"corr_lookup": {}, "corr_lookup_backward": {}}
+    hp, wp = -(-H // 64) * 8, -(-W // 64) * 8
+    th, tw = -(-TRAIN_H // 64) * 8, -(-TRAIN_W // 64) * 8
+    b = out["train"]["separableflow"]["batch"]
+    for kname, (n, h, w) in (("corr_lookup", (1, hp, wp)),
+                             ("corr_lookup_backward", (b, th, tw))):
+        f1 = torch.randn(n, 256, h, w, generator=g).to(dev)
+        f2 = torch.randn(n, 256, h, w, generator=g).to(dev) + 0.5 * f1
+        levels = corr.build_corr_pyramid(f1, f2, 4)
+        del f1, f2
+        coords = (torch.rand(n, 2, h, w, generator=g).to(dev) * 1.2 - 0.1) \
+            * torch.tensor([w, h], device=dev).view(1, 2, 1, 1)
+        label = (f"separableflow Q={n * h * w}" if n == 1 else
+                 f"separableflow train Q={n * h * w}")
+        got = corr.corr_lookup_kernel(levels, coords, 4)
+        err = (got - corr.corr_pyramid_lookup_plain(levels, coords, 4)).abs(
+            ).max().item()
+        log(f"[17 kernel vs plain] {label}, levels "
+            f"{[tuple(p.shape[1:]) for p in levels]}, r=4, fp32: max |err| "
+            f"{err:.3e} (tolerance {ATOL_FP32})")
+        if not err <= ATOL_FP32:
+            raise AssertionError(f"{label}: lookup |err| {err}")
+        if kname == "corr_lookup":
+            rec = lookup_record(torch, levels, coords, 4, err, flush)
+        else:
+            grad = torch.randn(got.shape, generator=g).to(dev)
+            rec = backward_record(torch, levels, coords, grad, 4, flush,
+                                  label)
+            del grad
+        out["kernels"][kname][label] = rec
+        log(f"[17 kernels] [{tag}] {kname} at {label}, levels "
+            f"{rec['levels']}, r=4, fp32, L2 flushed per launch: "
+            f"{rec['ms']:.4f} ms by CUDA events, "
+            f"{fmt_ms(rec['profiler_ms'])} device time by the profiler; "
+            f"plain {rec['plain_ms']:.4f} ms; library "
+            f"{rec['library_ms']:.4f} ms; bound {rec['bound_ms']:.5f} ms "
+            f"by {rec['bound_by']} ({rec['bound_bytes']} bytes), kernel "
+            f"at {rec['bound_ms'] / rec['ms']:.1%} of it")
+        del got, coords, levels
+        torch.cuda.empty_cache()
+    log(f"[17 kernels] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def profile_forward(torch, model, images, label: str, tag: str,
                     event_ms: float, phase: int = 5,
-                    kernel_names=None) -> dict:
+                    kernel_names=None, ranges=(), runs: int = 2) -> dict:
     """Device time by kernel over one forward (torch.profiler): busy ms,
     launches, idle share against the unprofiled ``event_ms``, the lookup's
     share, the top kernels and, for each ``kernel_names`` entry (label:
     substring), the ms and launches of the kernels whose name holds the
-    substring (any case).  A first profiled forward absorbs the tracer's
-    start-up and is not read.  A ``kernel_names`` substring may come with
-    a tuple of substrings that exclude a kernel: (substring, excludes)."""
+    substring (any case); for each of the ``record_function`` names
+    ``ranges``, the kernel launches issued under it (``range_launches``).
+    The last of ``runs`` profiled forwards is read: a first absorbs the
+    tracer's start-up, which phase 17 finds done by the earlier phases'
+    profiles.  A ``kernel_names`` substring may come
+    with a tuple of substrings that exclude a kernel: (substring,
+    excludes)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for _ in range(2):
+
+    for _ in range(runs):
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
@@ -4255,15 +4719,21 @@ def profile_forward(torch, model, images, label: str, tag: str,
             wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+        # a record_function range shows on the card as an annotation that
+        # spans its kernels: not a kernel
+        if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                and e.key not in ranges):
             us = (getattr(e, "self_device_time_total", None)
                   or getattr(e, "self_cuda_time_total", 0))
             if us > 0:
                 rows.append((us / 1e3, e.count, e.key))
+    in_ranges = range_launches(prof, ranges)
+    range_ms = range_kernel_ms(prof, ranges)
     if not rows:
         log(f"[{phase} profile] [{tag}] {label}: no device time recorded: "
             f"not measured")
-        return {"busy_ms": None}
+        return {"busy_ms": None, "range_launches": in_ranges,
+                "range_kernel_ms": range_ms}
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     lookup = sum(r[0] for r in rows if "corr_lookup" in r[2])
@@ -4286,7 +4756,59 @@ def profile_forward(torch, model, images, label: str, tag: str,
     return {"busy_ms": busy, "launches": launches, "wall_ms": wall_ms,
             "idle": 1 - busy / event_ms, "lookup_ms": lookup,
             "lookup_share": lookup / busy, "by_name": by_name,
+            "range_launches": in_ranges, "range_kernel_ms": range_ms,
             "top": [[ms, n, key[:80]] for ms, n, key in rows[:8]]}
+
+
+LAUNCH_CALLS = ("LaunchKernel", "LaunchCooperativeKernel")
+
+
+def range_launches(prof, ranges) -> dict:
+    """The kernel launches (host-side launch calls) of a profile issued
+    under each of the ``record_function`` names ``ranges``."""
+    counts = dict.fromkeys(ranges, 0)
+    if not counts:
+        return counts
+    for e in prof.events():
+        if not any(k in e.name for k in LAUNCH_CALLS):
+            continue
+        parent = e.cpu_parent
+        while parent is not None and parent.name not in counts:
+            parent = parent.cpu_parent
+        if parent is not None:
+            counts[parent.name] += 1
+    return counts
+
+
+def range_kernel_ms(prof, ranges) -> dict:
+    """The device time of the kernels of a profile that ran under each of
+    the ``record_function`` names ``ranges``: those that start within the
+    range's annotation on the card (its kernels run in order on the one
+    stream), summed; None where the card shows no annotation of the
+    range."""
+    import bisect
+
+    spans = {r: [] for r in ranges}
+    kernels = []
+    for e in prof.events():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        t = (e.time_range.start, e.time_range.end)
+        (spans[e.name] if e.name in spans else kernels).append(t)
+    out = {}
+    for r, ivs in spans.items():
+        if not ivs:
+            out[r] = None
+            continue
+        ivs.sort()
+        starts = [a for a, _ in ivs]
+        us = 0.0
+        for a, b in kernels:
+            i = bisect.bisect_right(starts, a) - 1
+            if i >= 0 and a < ivs[i][1]:
+                us += b - a
+        out[r] = us / 1e3
+    return out
 
 
 def profile_train_step(torch, step, state, batch, level_shapes, tag: str,

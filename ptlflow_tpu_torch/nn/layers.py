@@ -113,3 +113,65 @@ class LayerNorm2d(LayerNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+class CastConv3d(nn.Conv3d):
+    """``nn.Conv3d`` that runs in its input's dtype, as ``CastConv2d``.
+    Its seeded init is the JAX package's ``Conv3d``: weight kaiming-normal
+    (fan_out, relu), bias uniform in +-1/sqrt(fan_in)."""
+
+    def init_own_params(self, gen: torch.Generator) -> None:
+        kd, kh, kw = self.kernel_size
+        std = math.sqrt(2.0 / (self.out_channels * kd * kh * kw))
+        self.weight.copy_(torch.empty(self.weight.shape).normal_(
+            0.0, std, generator=gen))
+        if self.bias is not None:
+            bound = 1.0 / math.sqrt(self.in_channels // self.groups
+                                    * kd * kh * kw)
+            self.bias.copy_(torch.empty(self.bias.shape).uniform_(
+                -bound, bound, generator=gen))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class CastConvTranspose3d(nn.ConvTranspose3d):
+    """``nn.ConvTranspose3d`` that runs in its input's dtype.  Its seeded
+    init is the JAX package's: weight and bias uniform in
+    +-1/sqrt(in_channels * kd * kh * kw)."""
+
+    def init_own_params(self, gen: torch.Generator) -> None:
+        kd, kh, kw = self.kernel_size
+        bound = 1.0 / math.sqrt(self.in_channels * kd * kh * kw)
+        for t in (self.weight, self.bias):
+            if t is not None:
+                t.copy_(torch.empty(t.shape).uniform_(-bound, bound,
+                                                      generator=gen))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose3d(
+            x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+            self.output_padding, self.groups, self.dilation)
+
+
+class BatchNorm3d(nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` with :class:`BatchNorm2d`'s eval arithmetic (the
+    running statistics folded into a float32 scale and shift, applied in
+    the input's dtype) and training statistics (batch statistics, momentum
+    0.1, the unbiased variance), as the JAX package's ``_BN3d``."""
+
+    def init_own_params(self, gen: torch.Generator) -> None:
+        self.reset_parameters()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training or not self.track_running_stats:
+            return super().forward(x)
+        scale = torch.rsqrt(self.running_var.float() + self.eps)
+        shift = -self.running_mean.float() * scale
+        if self.affine:
+            scale = scale * self.weight.float()
+            shift = shift * self.weight.float() + self.bias.float()
+        view = (-1, 1, 1, 1)
+        return x * scale.to(x.dtype).view(view) + shift.to(x.dtype).view(view)

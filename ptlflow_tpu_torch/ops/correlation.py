@@ -730,3 +730,29 @@ def _corr_lookup_backward_lib() -> ctypes.CDLL:
                        ctypes.POINTER(i), i, i, i, i, i, i, vp]
         fn.restype = i
     return lib
+
+
+def local_correlation(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                      max_displacement: int, normalize: bool = True,
+                      dilation: int = 1, stride: int = 1) -> torch.Tensor:
+    """PWC-style local correlation over a (2d+1)^2 window of displacements
+    (``ptlflow_tpu/ops/correlation.py::local_correlation`` without
+    ``coords``, the form every model of the zoo calls): (B, C, H, W) maps
+    -> (B, (2d+1)^2, H', W'), channel (dy, dx) row-major, each the sum over
+    C of ``fmap1`` times ``fmap2`` moved by (dy, dx) times ``dilation``,
+    zero outside the map; divided by C where ``normalize``; every
+    ``stride``-th query position.
+
+    One ``unfold`` of the zero-padded ``fmap2`` gathers every window at
+    the query positions ((2d+1)^2 times the strided map, kept for the
+    backward), then one product and one channel sum: 3 launches (4 with
+    the division), where the JAX package slices the padded map once per
+    displacement."""
+    b, c = fmap1.shape[:2]
+    n = 2 * max_displacement + 1
+    f1 = fmap1[:, :, ::stride, ::stride]
+    ho, wo = f1.shape[-2:]
+    win = F.unfold(fmap2, n, dilation=dilation,
+                   padding=max_displacement * dilation, stride=stride)
+    corr = (f1[:, :, None] * win.view(b, c, n * n, ho, wo)).sum(1)
+    return corr / c if normalize else corr

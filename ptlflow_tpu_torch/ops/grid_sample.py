@@ -121,3 +121,28 @@ def interpolate_bicubic(x: torch.Tensor, scale: Tuple[float, float],
             cols = cols + r.index_select(-1, xi[j]) * wx[j]
         rows = rows + cols * wy[i][:, None]
     return rows.to(x.dtype)
+
+
+def bilinear_coverage(coords: torch.Tensor, shape: Tuple[int, int],
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """What ``bilinear_sampler`` of an all-ones (h, w) map at ``coords``
+    (N, 2, Ho, Wo; x then y) gives, in closed form: the in-range share of
+    the 2x2 stencil, (N, 1, Ho, Wo) in ``dtype`` (the coords' by default),
+    as ``ptlflow_tpu/ops/grid_sample.py::bilinear_coverage``.  The
+    coordinates take the sampler's normalise and denormalise round trip
+    step for step, in float32 at least, so that a threshold such as PWC's
+    ``>= 0.9999`` cuts at the pixels where the sampled ones would."""
+    h, w = shape
+    c = coords.to(torch.promote_types(coords.dtype, torch.float32))
+    gx = 2.0 * c[:, 0] / (w - 1) - 1.0
+    gy = 2.0 * c[:, 1] / (h - 1) - 1.0
+    x = (gx + 1.0) * 0.5 * (w - 1)
+    y = (gy + 1.0) * 0.5 * (h - 1)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    vx0 = ((x0 >= 0) & (x0 <= w - 1)).to(c.dtype)
+    vx1 = ((x0 >= -1) & (x0 <= w - 2)).to(c.dtype)
+    vy0 = ((y0 >= 0) & (y0 <= h - 1)).to(c.dtype)
+    vy1 = ((y0 >= -1) & (y0 <= h - 2)).to(c.dtype)
+    cov = (vy0 * (1 - fy) + vy1 * fy) * (vx0 * (1 - fx) + vx1 * fx)
+    return cov[:, None].to(dtype or coords.dtype)

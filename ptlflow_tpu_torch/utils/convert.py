@@ -32,7 +32,11 @@ import torch
 # Convolution weights, stored HWIO by the JAX package: a convolution's, and
 # the two rank-1 factors of NeXt1D's depthwise kernel
 # (ptlflow_tpu/models/rapidflow/next1d.py:56-64).  ``ConvTranspose2d``'s
-# (kh, kw, O, I) takes the same transpose to torch's (I, O, kh, kw).
+# (kh, kw, O, I) takes the same transpose to torch's (I, O, kh, kw).  A 5-D
+# ``weight`` is a 3-D convolution's, DHWIO (ptlflow_tpu/nn/layers.py:312-316),
+# or a ``ConvTranspose3d``'s, DHWOI (:367-371): one transpose gives torch's
+# OIDHW or IODHW.  SeparableFlow's ``_BN3d`` stores BatchNorm3d's leaves
+# under its own name, as torch does.
 CONV_WEIGHTS = ("weight", "weight_h", "weight_v")
 
 # Leaves that the JAX package stores in another axis order, with the
@@ -137,6 +141,8 @@ def _convert(params: Dict[str, Any], prefix: str,
             a = np.transpose(a, LEAF_TRANSPOSES[k])
         elif k in CONV_WEIGHTS and a.ndim == 4:  # conv HWIO -> OIHW
             a = np.transpose(a, (3, 2, 0, 1))
+        elif k == "weight" and a.ndim == 5:  # 3-D conv DHWIO -> OIDHW
+            a = np.transpose(a, (4, 3, 0, 1, 2))
         elif k == "weight" and a.ndim == 2 and name not in embeddings:
             a = a.T  # linear (in, out) -> (out, in)
         out[name] = torch.from_numpy(np.ascontiguousarray(a).copy())

@@ -74,24 +74,26 @@ def test_port_sources_import_no_jax():
 
 PORTED = ["ccmr", "ccmr_p", "craft", "csflow", "dip", "dpflow", "flow1d",
           "flow_anything", "flowformer", "flowformer_pp", "flowseek_m",
-          "flowseek_t", "gma", "gmflownet", "gmflownet_mix", "lcv_raft",
-          "lcv_raft_small", "llaflow", "llaflow_raft", "matchflow",
-          "matchflow_raft", "memflow", "memflow_t", "memfof", "ms_raft_p",
-          "neuflow2", "raft", "raft_small", "rapidflow", "rapidflow_it1",
+          "flowseek_t", "gma", "gmflownet", "gmflownet_mix", "irr_pwc",
+          "irr_pwcnet", "irr_pwcnet_irr", "lcv_raft", "lcv_raft_small",
+          "llaflow", "llaflow_raft", "matchflow", "matchflow_raft", "memflow",
+          "memflow_t", "memfof", "ms_raft_p", "neuflow2", "pwcnet",
+          "pwcnet_nodc", "raft", "raft_small", "rapidflow", "rapidflow_it1",
           "rapidflow_it2", "rapidflow_it3", "rapidflow_it6", "recover_cx",
-          "recover_mn", "recover_rn", "rpknet", "scv4", "scv8", "sea_raft",
-          "sea_raft_l", "sea_raft_m", "sea_raft_s", "skflow", "splatflow",
-          "streamflow", "videoflow_bof", "videoflow_mof", "waft_dav2_a1",
-          "waft_dav2_a2", "waft_dinov3_a2", "waft_twins_a2"]
+          "recover_mn", "recover_rn", "rpknet", "scopeflow", "scv4", "scv8",
+          "sea_raft", "sea_raft_l", "sea_raft_m", "sea_raft_s",
+          "separableflow", "skflow", "splatflow", "streamflow",
+          "videoflow_bof", "videoflow_mof", "waft_dav2_a1", "waft_dav2_a2",
+          "waft_dinov3_a2", "waft_twins_a2"]
 
 
 def test_registry():
-    """The 52 ported names; the trainable ones are the JAX package's
+    """The 59 ported names; the trainable ones are the JAX package's
     trainable names among them (``flowformer_pp``, the VideoFlows,
     ``memfof``, ``splatflow``, ``flow_anything``, the FlowSeeks and the
     CCMRs are not trainable)."""
     assert ptlflow_tpu_torch.get_model_names() == PORTED
-    assert len(PORTED) == 52
+    assert len(PORTED) == 59
     assert ptlflow_tpu_torch.get_trainable_model_names() == [
         n for n in PORTED if n in ptlflow_tpu.get_trainable_model_names()]
     for name in ("flowformer_pp", "videoflow_bof", "videoflow_mof",
@@ -103,13 +105,15 @@ def test_registry():
                  "waft_dav2_a1", "waft_dav2_a2", "waft_dinov3_a2",
                  "waft_twins_a2", "dip", "flow1d", "gmflownet",
                  "gmflownet_mix", "matchflow", "matchflow_raft", "scv4",
-                 "scv8", "ms_raft_p"):
+                 "scv8", "ms_raft_p", "separableflow", "pwcnet",
+                 "pwcnet_nodc", "irr_pwc", "scopeflow", "irr_pwcnet",
+                 "irr_pwcnet_irr"):
         assert name in ptlflow_tpu_torch.get_trainable_model_names()
     assert ptlflow_tpu_torch.get_ptlflow_trained_model_names() == [
         "ccmr", "ccmr_p", "dpflow", "flowseek_m", "flowseek_t", "gma",
-        "ms_raft_p", "raft", "raft_small", "rapidflow", "rapidflow_it1",
-        "rapidflow_it2", "rapidflow_it3", "rapidflow_it6", "rpknet",
-        "waft_dav2_a1", "waft_dav2_a2", "waft_twins_a2"]
+        "ms_raft_p", "pwcnet", "raft", "raft_small", "rapidflow",
+        "rapidflow_it1", "rapidflow_it2", "rapidflow_it3", "rapidflow_it6",
+        "rpknet", "waft_dav2_a1", "waft_dav2_a2", "waft_twins_a2"]
     assert ptlflow_tpu_torch.get_model_reference("raft").__name__ == "raft"
     with pytest.raises(ValueError):
         ptlflow_tpu_torch.get_model_reference("no_such_model")
@@ -237,7 +241,13 @@ def test_checkpoint_round_trip(tmp_path):
     ("scv8", "fnet.layer1.0.downsample.0.weight"),
     ("ms_raft_p", "fnet.layer2.0.downsample.1.weight"),
     ("ccmr", "update_block.aggregator.2.blocks.0.gamma3"),
-    ("ccmr_p", "xcit.3.blocks.0.attn.temperature")])
+    ("ccmr_p", "xcit.3.blocks.0.attn.temperature"),
+    ("separableflow", "cost_agg1.deconv1b.conv1.conv.weight"),
+    ("pwcnet", "dc_conv5.0.weight"), ("pwcnet_nodc", "upfeat3.weight"),
+    ("irr_pwc", "occ_shuffle_upsample.res_convs.1.0.weight"),
+    ("scopeflow", "refine_occ.convs.6.0.bias"),
+    ("irr_pwcnet", "flow_estimators.4.conv_last.0.weight"),
+    ("irr_pwcnet_irr", "conv_1x1.4.0.weight")])
 def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     """A Lightning-style .ckpt in the reference's layout, converted from a
     JAX tree (MemFlow nests its net under ``network.``, LCV-RAFT stores
@@ -251,7 +261,10 @@ def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     FlowSeek's ViTs, DIP's small update block, Flow1D's 1-D attention,
     GMFlowNet's ``relative_position_index`` buffers, MatchFlow's quadtree
     level blend, the norm that SCV and MS-RAFT+ register twice (``norm3``
-    and ``downsample.1``), CCMR's temperatures and layer scales), loads into
+    and ``downsample.1``), CCMR's temperatures and layer scales,
+    SeparableFlow's 3-D convolutions (a transposed one here) and
+    BatchNorm3d, PWC-Net's transposed convolutions and dilated context,
+    IRR's per-level and shared estimators and occlusion networks), loads into
     ``get_model`` strictly, every tensor equal.  WAFT's Twins checkpoint
     also holds timm's classifier ``norm.``/``head.``, which the load
     drops."""
