@@ -192,6 +192,24 @@ Phases, each of which must pass, else the script exits non-zero:
     384x512 at the first batch of (10, 8, 6, 4, 2) that fits; and both
     kernels against their plain versions and timed at ``separableflow``'s
     pyramids (phase 2 checks them there too).
+18. FlowNet (``flownets``, ``flownetc``, ``flownetsd``, ``flownetcs``,
+    ``flownetcss``, ``flownet2``), LiteFlowNet (``liteflownet``,
+    ``liteflownet2``, ``liteflownet3``, ``liteflownet3s``, each of the last
+    three with and without ``_pseudoreg``) and FastFlowNet, the
+    encoder-decoders, the matching cascades and the shuffled decoders on
+    the local correlation: serve 3 consecutive pairs of one sequence at
+    436x1024 through each, cold, counting no lookup launch (LiteFlowNet3's
+    ``confs`` checked); time each fp32 forward with its peak memory and
+    ``local_correlation``'s device ms and calls by CUDA events around its
+    calls, profile those of ``flownetc``, ``flownet2``, ``liteflownet3``
+    and ``fastflownet``, and time the ``validate --bf16`` casts of
+    ``flownet2``, ``liteflownet3`` and ``fastflownet`` with their mean
+    |flow| difference from fp32; the flows (and ``confs``) of all 14 at
+    256x320 on the card against the CPU, and ``local_correlation`` with
+    its gradient on LiteFlowNet3's self-correlation; one train step at
+    128x192 of ``flownetc``, ``flownet2`` (its loss from full size) and
+    ``fastflownet`` on both; and train the three at 384x512 at the first
+    batch of (10, 8, 6, 4, 2) that fits.
 
 Phases 10-16 time their forwards but profile none (the script's time went
 to phase 17; PERF.md section 5 keeps the profiles of their last profiled
@@ -211,7 +229,8 @@ card's name and power limit (after ``{"harness": ...}``,
 ``{"train_cli": ...}``, ``{"flowformer": ...}``, ``{"sk_family": ...}``,
 ``{"recurrent_pyramid": ...}``, ``{"video_and_attention": ...}``,
 ``{"volume_and_backbone": ...}``, ``{"slice13": ...}``,
-``{"slice14": ...}`` and ``{"slice15": ...}``, phases 8-17's numbers), and
+``{"slice14": ...}``, ``{"slice15": ...}`` and ``{"slice16": ...}``,
+phases 8-18's numbers), and
 the last
 line ``{"ok": true, "device": {...}}``.  With no card it prints no result
 and exits 2.
@@ -464,15 +483,54 @@ S15_TRAIN_STEPS = 2
 RTOL_NLF = 1e-4
 # ``local_correlation``'s output and both gradients card against CPU, of
 # each one's largest element (float32 sums of the same terms in another
-# order), at (radius, dilation, stride, channels, height, width): PWC's
-# and IRR's, FlowNetC's dilated window and LiteFlowNet's dilated and
-# strided one
+# order), at (radius, dilation, stride, channels, height, width, one map
+# as both arguments): PWC's and IRR's (and FastFlowNet's, whose 1/4 level
+# has PWC's shape at 1024x448), FlowNetC's dilated window and LiteFlowNet's
+# dilated and strided one (phase 17); LiteFlowNet3's self-correlation at
+# its 1/4 level, whose gradient adds both arguments' (phase 18)
 RTOL_LOCAL_CORR = 1e-5
-LOCAL_CORR_CASES = ((4, 1, 1, 32, 112, 256), (10, 2, 1, 256, 48, 64),
-                    (3, 2, 2, 64, 56, 128))
+LOCAL_CORR_CASES = ((4, 1, 1, 32, 112, 256, False),
+                    (10, 2, 1, 256, 48, 64, False),
+                    (3, 2, 2, 64, 56, 128, False),
+                    (4, 2, 1, 64, 112, 256, True))
+# Phase 18: FlowNet (S, C, SD, CS, CSS, 2), LiteFlowNet (1, 2, 3, 3S and the
+# pseudo-regularised variants) and FastFlowNet, on local correlations (no
+# lookup launch)
+S16_NAMES = ("flownets", "flownetc", "flownetsd", "flownetcs", "flownetcss",
+             "flownet2", "liteflownet", "liteflownet2",
+             "liteflownet2_pseudoreg", "liteflownet3",
+             "liteflownet3_pseudoreg", "liteflownet3s",
+             "liteflownet3s_pseudoreg", "fastflownet")
+S16_PROFILED = ("flownetc", "flownet2", "liteflownet3", "fastflownet")
+S16_BF16 = ("flownet2", "liteflownet3", "fastflownet")
+# FlowNet2's ``flow_preds`` are its fusion network's (full size, 1/2, 1/4):
+# its loss pools the ground truth from full size (the registered 1/4 fails
+# on their shapes, in the JAX package too)
+S16_ARGS = {"flownet2": {"loss_start_scale": 1}}
+# one train step card against CPU: (model, batch seed, size); the losses
+# pool by whole ratios, so the sizes are multiples of 64
+S16_STEP_CHECK = (("flownetc", 6, (128, 192)), ("flownet2", 6, (128, 192)),
+                  ("fastflownet", 6, (128, 192)))
+S16_TRAIN = ("flownetc", "flownet2", "fastflownet")
+S16_TRAIN_SIZE = (384, 512)
+S16_TRAIN_BATCHES = (10, 8, 6, 4, 2)
+S16_TRAIN_STEPS = 2
+# the flow heads damped by 0.1 (the CPU tests' ``HEADS``): random
+# encoder-decoders and cascades grow their flows level after level
+S16_DAMPED = {"flownet": ("*predict_flow*",),
+              "liteflownet": ("matching_nets.*.flow_net.6",
+                              "subpixel_nets.*.flow_net.6"),
+              "liteflownet23": ("matching_nets.*.flow_net.10",
+                                "subpixel_nets.*.flow_net",
+                                "pseudo_subpixel.flow_net.1",
+                                "deformation_nets.*.disp_pred"),
+              "fastflownet": ("decoder*.conv7",)}
 # softsplat_average, card against CPU: float32 sums of a few terms whose
 # atomics add in no fixed order on the card
 ATOL_SPLAT = 1e-5
+# LiteFlowNet3's ``confs`` (sigmoids in [0, 1]) card against CPU at
+# 256x320, as its CPU tests hold them to the JAX package's
+ATOL_CONFS = 1e-4
 # DeviceCompose, card against CPU on one Chairs sample, the same draws and
 # one noise field: float32 sums of the same few terms in another order
 ATOL_AUG_IMAGES, ATOL_AUG_FLOWS_PX = 1e-5, 1e-4
@@ -1121,6 +1179,33 @@ def condition_slice15(torch, name: str, model) -> None:
         damp(model.occ_shuffle_upsample.out_convs[0], 0.02)
 
 
+def s16_family(name: str) -> str:
+    """The key of phase 18's per-family tables (``S16_DAMPED``)."""
+    if name.startswith("flownet"):
+        return "flownet"
+    if name.startswith(("liteflownet2", "liteflownet3")):
+        return "liteflownet23"
+    return name
+
+
+def condition_slice16(torch, name: str, model) -> None:
+    """Phase 18's models, conditioned as their CPU tests are: the flow
+    heads (``S16_DAMPED``: every ``predict_flow*`` of the FlowNets at any
+    depth, the last convolution of LiteFlowNet's matching and sub-pixel
+    flow networks, of the pseudo sub-pixel stage and of LiteFlowNet3's
+    displacement heads, FastFlowNet's decoder outputs) damped by 0.1."""
+    import fnmatch
+
+    patterns = S16_DAMPED[s16_family(name)]
+    with torch.no_grad():
+        for mod_name, mod in model.named_modules():
+            if (any(fnmatch.fnmatch(mod_name, p) for p in patterns)
+                    and getattr(mod, "weight", None) is not None):
+                mod.weight.mul_(0.1)
+                if mod.bias is not None:
+                    mod.bias.mul_(0.1)
+
+
 class TopkReplay:
     """Every ``torch.topk`` of a run on the card recorded, then given to a
     run on the CPU: the quadtree attention's and SCV's selections, where a
@@ -1196,7 +1281,11 @@ def parity_weights(torch, name: str, model, images) -> None:
     ``condition_volume_and_backbone``.  WAFT, FlowSeek, DIP, Flow1D,
     GMFlowNet: ``condition_slice13``.  MatchFlow, SCV, MS-RAFT+, CCMR:
     ``condition_slice14``.  SeparableFlow, PWC-Net, IRR:
-    ``condition_slice15``."""
+    ``condition_slice15``.  FlowNet, LiteFlowNet, FastFlowNet:
+    ``condition_slice16``."""
+    if name in S16_NAMES:
+        condition_slice16(torch, name, model)
+        return
     if name in S15_NAMES:
         condition_slice15(torch, name, model)
         return
@@ -2225,6 +2314,18 @@ def main(argv=None) -> int:
     for name, path in s15_train_paths.items():
         launches[path] = sum(s15["train"][name]["lookup"])
 
+    # ---------------------------------------------------------------- 18
+    t18 = time.perf_counter()
+    s16 = slice16_phase(torch, dev, tag)
+    log(f"[18] {time.perf_counter() - t18:.1f} s")
+    launches.update(s16["launches"])
+    s16_train_paths = {
+        name: (f"{name} train, {S16_TRAIN_STEPS} steps at {rec['size'][1]}x"
+               f"{rec['size'][0]}, batch {rec['batch']}")
+        for name, rec in s16["train"].items()}
+    for name, path in s16_train_paths.items():
+        launches[path] = sum(s16["train"][name]["lookup"])
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -2309,7 +2410,12 @@ def main(argv=None) -> int:
                s15["train_step_card_vs_cpu"][name]["launches"][1]
                for name, _, _, _, size in S15_STEP_CHECK},
             **{path: sum(s15["train"][name]["lookup_backward"])
-               for name, path in s15_train_paths.items()}),
+               for name, path in s15_train_paths.items()},
+            **{f"{name} train step at {size[1]}x{size[0]}":
+               s16["train_step_card_vs_cpu"][name]["launches"][1]
+               for name, _, size in S16_STEP_CHECK},
+            **{path: sum(s16["train"][name]["lookup_backward"])
+               for name, path in s16_train_paths.items()}),
         "max_abs_err": bwd_err,
         "max_abs_grad": bwd_gmax,
         "ms": bwd_ms,
@@ -2361,6 +2467,7 @@ def main(argv=None) -> int:
                                 if k != "kernels"}, "card": tag}))
     log(json.dumps({"slice15": {k: v for k, v in s15.items()
                                 if k != "kernels"}, "card": tag}))
+    log(json.dumps({"slice16": s16, "card": tag}))
     log(tag)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -4412,33 +4519,42 @@ def span_ms(torch, model, images, spans) -> dict:
                     "calls": len(recs)} for label, recs in spans.items()}
 
 
-def local_corr_card_vs_cpu(torch, dev) -> dict:
+def local_corr_card_vs_cpu(torch, dev, same: bool = False,
+                           phase: int = 17) -> dict:
     """``local_correlation`` (unnormalised, as PWC calls it) and the
     gradients of both maps under a random cotangent, card against CPU at
-    LOCAL_CORR_CASES, batch 1; the largest difference of the three, of
-    each one's largest element, by case."""
+    the LOCAL_CORR_CASES of two maps (or, where ``same``, of one map as
+    both arguments, whose one gradient autograd sums from both), batch 1;
+    the largest difference of the outputs, of each one's largest element,
+    by case."""
     from ptlflow_tpu_torch.ops import local_correlation
 
     g = torch.Generator().manual_seed(173)
     res = {}
-    for d, dil, st, c, h, w in LOCAL_CORR_CASES:
+    for d, dil, st, c, h, w, one in LOCAL_CORR_CASES:
+        if one != same:
+            continue
         f1, f2 = (torch.randn(1, c, h, w, generator=g) for _ in range(2))
         cot = torch.randn(1, (2 * d + 1) ** 2, -(-h // st), -(-w // st),
                           generator=g)
         got = []
         for where in (dev, torch.device("cpu")):
             a, b = (t.to(where).requires_grad_() for t in (f1, f2))
+            if same:
+                b = a
             o = local_correlation(a, b, d, normalize=False, dilation=dil,
                                   stride=st)
-            grads = torch.autograd.grad((o * cot.to(where)).sum(), (a, b))
+            grads = torch.autograd.grad((o * cot.to(where)).sum(),
+                                        (a,) if same else (a, b))
             got.append([t.detach().cpu() for t in (o, *grads)])
         rel = max((x - y).abs().max().item() / y.abs().max().item()
                   for x, y in zip(*got))
-        key = f"d={d} dilation={dil} stride={st} {c}x{h}x{w}"
+        key = (f"d={d} dilation={dil} stride={st} {c}x{h}x{w}"
+               f"{' one map' if same else ''}")
         res[key] = rel
-        log(f"[17 card vs cpu] local_correlation {key}: output and both "
-            f"gradients max |d| / max |v| {rel:.3e} (tolerance "
-            f"{RTOL_LOCAL_CORR})")
+        log(f"[{phase} card vs cpu] local_correlation {key}: output and "
+            f"{'its gradient' if same else 'both gradients'} max |d| / max "
+            f"|v| {rel:.3e} (tolerance {RTOL_LOCAL_CORR})")
         if not rel <= RTOL_LOCAL_CORR:
             raise AssertionError(f"local_correlation {key}: {rel}")
     return res
@@ -4689,6 +4805,172 @@ def slice15_phase(torch, dev, tag: str) -> dict:
         del got, coords, levels
         torch.cuda.empty_cache()
     log(f"[17 kernels] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def slice16_phase(torch, dev, tag: str) -> dict:
+    """Phase 18: FlowNet (``flownets``, ``flownetc``, ``flownetsd``,
+    ``flownetcs``, ``flownetcss``, ``flownet2``), LiteFlowNet
+    (``liteflownet``, ``liteflownet2`` (+``_pseudoreg``), ``liteflownet3``,
+    ``liteflownet3s`` (each +``_pseudoreg``)) and FastFlowNet on the card,
+    fp32, TF32 off, their flow heads damped (``condition_slice16``).
+    Serves 3 consecutive pairs of one sequence at 436x1024 through each,
+    cold, counting no lookup launch and checking no autograd graph (and
+    LiteFlowNet3's ``confs``); times each fp32 forward with its peak memory,
+    with the device ms and calls of ``local_correlation`` by CUDA events
+    around its calls (``timed_spans``), profiles the forwards of
+    S16_PROFILED once each (kernel ms, launches, idle share,
+    ``local_correlation``'s kernel ms and launches under its range), and
+    times the ``validate --bf16`` casts of S16_BF16 with their mean |flow|
+    difference from fp32; holds the card against the CPU at 256x320 for
+    every name (flows and ``confs``) and ``local_correlation`` with its
+    gradient on LiteFlowNet3's self-correlation (LOCAL_CORR_CASES); one
+    train step card against CPU (S16_STEP_CHECK); and trains S16_TRAIN at
+    384x512 at the first of S16_TRAIN_BATCHES that fits (unprofiled)."""
+    import copy
+    import importlib
+
+    import ptlflow_tpu_torch
+    from ptlflow_tpu_torch.parallel import train as ttrain
+    from ptlflow_tpu_torch.scripts.validate import cast_to_bf16
+    from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+
+    # the module whose ``local_correlation`` each family calls
+    lfn = importlib.import_module(
+        "ptlflow_tpu_torch.models.liteflownet.liteflownet")
+    modules = {"flownet": importlib.import_module(
+        "ptlflow_tpu_torch.models.flownet.flownet"), "liteflownet": lfn,
+        "liteflownet23": lfn, "fastflownet": importlib.import_module(
+            "ptlflow_tpu_torch.models.fastflownet.fastflownet")}
+    out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
+           "peak_gib": {}, "forward_gib": {}, "launches": {}, "spans": {},
+           "bf16_mean_abs_diff_px": {}, "card_vs_cpu_px": {},
+           "confs_card_vs_cpu": {}}
+    # cuDNN's convolution kernels, the correlation's unfold (im2col),
+    # product and sum, the warps' samplers (PyTorch's or cuDNN's)
+    named = {"cuDNN fprop": "fprop", "im2col": "im2col",
+             "elementwise": "elementwise_kernel", "reductions": "reduce",
+             "samplers": "sampler", "cat": "CatArrayBatchedCopy"}
+    frames = smooth_frames(181, H, W, 4, shift=(2, 1))
+    for name in S16_NAMES:
+        t0 = time.perf_counter()
+        model = ptlflow_tpu_torch.get_model(name, args=S16_ARGS.get(name))
+        parity_weights(torch, name, model, None)
+        n, x = serve_sequence(torch, name, model, frames, 0,
+                              (1, 1, 2, H, W), 18, window=2, warm=False)
+        key = f"{name} serve at {W}x{H}, 3 pairs"
+        out["launches"][key] = n
+        if n != 0:
+            raise AssertionError(f"{key}: {n} lookup launches")
+        if name.startswith("liteflownet3"):
+            adapter = IOAdapter(model)
+            res = adapter.unscale(model(adapter.prepare_inputs(frames[:2])))
+            conf = res["confs"]
+            if (tuple(conf.shape) != (1, 1, 1, H, W)
+                    or not (0 <= conf.min() <= conf.max() <= 1)
+                    or conf.grad_fn is not None):
+                raise AssertionError(f"{name}: confs {tuple(conf.shape)} in "
+                                     f"[{conf.min()}, {conf.max()}]")
+            log(f"[18 serve] {name}: confs {tuple(conf.shape)} in "
+                f"[{conf.min().item():.3f}, {conf.max().item():.3f}]")
+        label = f"{name} fp32"
+        correlates = name not in ("flownets", "flownetsd")
+        spans = ([(modules[s16_family(name)], "local_correlation",
+                   "local_correlation")] if correlates else [])
+        profiled = name in S16_PROFILED
+        with timed_spans(torch, spans) as recs:
+            time_forward(torch, model, x["images"], label, tag,
+                         "no lookups", 18, out, named, reps=FWD_REPS,
+                         warmups=FWD_WARMUPS, profiled=profiled,
+                         ranges=list(recs), profile_runs=1)
+            rec = span_ms(torch, model, x["images"], recs) if spans else {}
+        fwd_ms = out["forward_ms"][label]
+        for span, r in rec.items():
+            if profiled:
+                prof = out["profile"][label]
+                r["launches"] = prof["range_launches"][span]
+                r["kernel_ms"] = prof["range_kernel_ms"][span]
+            log(f"[18 forward] [{tag}] {label}: {span} {r['calls']} calls, "
+                f"{r['ms']:.3f} ms stream-elapsed by CUDA events around them "
+                f"(the card's idle gaps included; {r['ms'] / fwd_ms:.1%} of "
+                f"the {fwd_ms:.3f} ms forward)"
+                + (f", {fmt_ms(r['kernel_ms'])} of kernel time under them by "
+                   f"the profiler, {r['launches']} kernel launches"
+                   if profiled else ""))
+        out["spans"][label] = rec
+        if name in S16_BF16:
+            cast = copy.deepcopy(model)
+            if not cast_to_bf16(cast, name):
+                raise AssertionError(f"{name}: not on the allow-list")
+            time_forward(torch, cast, x["images"], f"{name} bf16 cast", tag,
+                         "no lookups", 18, out, named, reps=FWD_REPS,
+                         warmups=FWD_WARMUPS, profiled=False)
+            with torch.no_grad():
+                diff = (cast({"images": x["images"]})["flows"]
+                        - model({"images": x["images"]})["flows"]).abs()
+            out["bf16_mean_abs_diff_px"][name] = diff.mean().item()
+            log(f"[18 forward] [{tag}] {name} bf16 cast: mean |dflow| "
+                f"{diff.mean().item():.4e} px, max {diff.max().item():.4e} px "
+                f"against the fp32 forward")
+            del cast
+        log(f"[18 serve] {name}: {time.perf_counter() - t0:.1f} s with its "
+            f"timing")
+        del model, x
+        torch.cuda.empty_cache()
+
+    # card against CPU at 256x320; LiteFlowNet3's confs too
+    t0 = time.perf_counter()
+    pair = smooth_frames(7, 256, 320, 2, shift=(3, 2))
+    x = IOAdapter(device="cpu").prepare_inputs(pair)
+    xd = x["images"].to(dev)
+    for name in S16_NAMES:
+        gpu_model, cpu_model = card_and_cpu(torch, name, xd, served=False)
+        got = gpu_model({"images": xd})
+        want = cpu_model(x)
+        diff = (got["flows"].cpu() - want["flows"]).abs().max().item()
+        out["card_vs_cpu_px"][name] = diff
+        extra = ""
+        if "confs" in want:
+            cd = (got["confs"].cpu() - want["confs"]).abs().max().item()
+            out["confs_card_vs_cpu"][name] = cd
+            extra = f"; confs max |d| {cd:.3e} (tolerance {ATOL_CONFS})"
+            if not cd <= ATOL_CONFS:
+                raise AssertionError(f"{name}: confs differ by {cd}")
+        log(f"[18 card vs cpu] {name} 256x320: max |dflow| {diff:.3e} px "
+            f"(flow up to {want['flows'].abs().max().item():.2f} px, "
+            f"tolerance {ATOL_CARD_CPU_PX} px){extra}")
+        if not diff <= ATOL_CARD_CPU_PX:
+            raise AssertionError(f"{name}: card and CPU differ by {diff} px")
+        del cpu_model, gpu_model, got, want
+    del xd
+    out["local_corr_card_vs_cpu"] = local_corr_card_vs_cpu(torch, dev, True,
+                                                           18)
+    log(f"[18 card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # one train step card against CPU
+    t0 = time.perf_counter()
+    out["train_step_card_vs_cpu"] = {
+        name: train_step_card_vs_cpu(torch, name, dev, S16_ARGS.get(name, {}),
+                                     (0, 0), batch_seed=seed, size=size)
+        for name, seed, size in S16_STEP_CHECK}
+    log(f"[18 train step card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # training at the first batch that fits
+    out["train"] = {}
+    for name in S16_TRAIN:
+        t0 = time.perf_counter()
+        model = ptlflow_tpu_torch.get_model(name, args=S16_ARGS.get(name))
+        parity_weights(torch, name, model, None)
+        tx = ttrain.make_optimizer(lr=1e-4, wdecay=4e-4, total_steps=120000,
+                                   pct_start=0.05, grad_clip=1.0)
+        out["train"][name] = train_at_largest_batch(
+            torch, dev, tag, model, tx, S16_TRAIN_BATCHES, S16_TRAIN_STEPS,
+            0, name, 18, size=S16_TRAIN_SIZE, level_shapes=lambda b: [],
+            profile_runs=0, launches=(0, 0))
+        out["train"][name]["size"] = list(S16_TRAIN_SIZE)
+        log(f"[18 train] {name}: {time.perf_counter() - t0:.1f} s")
+        del model, tx
+        torch.cuda.empty_cache()
     return out
 
 

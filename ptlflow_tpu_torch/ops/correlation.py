@@ -741,12 +741,18 @@ def local_correlation(fmap1: torch.Tensor, fmap2: torch.Tensor,
     -> (B, (2d+1)^2, H', W'), channel (dy, dx) row-major, each the sum over
     C of ``fmap1`` times ``fmap2`` moved by (dy, dx) times ``dilation``,
     zero outside the map; divided by C where ``normalize``; every
-    ``stride``-th query position.
+    ``stride``-th query position.  The models call it as PWC (radius 4),
+    FlowNetC (radius 10, dilation 2: 441 windows), LiteFlowNet (radius 3,
+    dilation and stride 1 or 2; radius 4) and FastFlowNet (radius 4) do;
+    LiteFlowNet3 passes one map as both arguments (its self-correlation),
+    and autograd then adds the two arguments' gradients into that map's.
 
     One ``unfold`` of the zero-padded ``fmap2`` gathers every window at
     the query positions ((2d+1)^2 times the strided map, kept for the
-    backward), then one product and one channel sum: 3 launches (4 with
-    the division), where the JAX package slices the padded map once per
+    backward: 3.24 GB at FlowNetC's 256 channels on 56x128), then one
+    product and one channel sum: 3 launches (4 with the division; the
+    product and the sum each split in two where their tensors pass 2^31
+    bytes), where the JAX package slices the padded map once per
     displacement."""
     b, c = fmap1.shape[:2]
     n = 2 * max_displacement + 1

@@ -72,11 +72,15 @@ def test_port_sources_import_no_jax():
     assert not offenders
 
 
-PORTED = ["ccmr", "ccmr_p", "craft", "csflow", "dip", "dpflow", "flow1d",
-          "flow_anything", "flowformer", "flowformer_pp", "flowseek_m",
-          "flowseek_t", "gma", "gmflownet", "gmflownet_mix", "irr_pwc",
-          "irr_pwcnet", "irr_pwcnet_irr", "lcv_raft", "lcv_raft_small",
-          "llaflow", "llaflow_raft", "matchflow", "matchflow_raft", "memflow",
+PORTED = ["ccmr", "ccmr_p", "craft", "csflow", "dip", "dpflow", "fastflownet",
+          "flow1d", "flow_anything", "flowformer", "flowformer_pp", "flownet2",
+          "flownetc", "flownetcs", "flownetcss", "flownets", "flownetsd",
+          "flowseek_m", "flowseek_t", "gma", "gmflownet", "gmflownet_mix",
+          "irr_pwc", "irr_pwcnet", "irr_pwcnet_irr", "lcv_raft",
+          "lcv_raft_small", "liteflownet", "liteflownet2",
+          "liteflownet2_pseudoreg", "liteflownet3", "liteflownet3_pseudoreg",
+          "liteflownet3s", "liteflownet3s_pseudoreg", "llaflow",
+          "llaflow_raft", "matchflow", "matchflow_raft", "memflow",
           "memflow_t", "memfof", "ms_raft_p", "neuflow2", "pwcnet",
           "pwcnet_nodc", "raft", "raft_small", "rapidflow", "rapidflow_it1",
           "rapidflow_it2", "rapidflow_it3", "rapidflow_it6", "recover_cx",
@@ -88,17 +92,20 @@ PORTED = ["ccmr", "ccmr_p", "craft", "csflow", "dip", "dpflow", "flow1d",
 
 
 def test_registry():
-    """The 59 ported names; the trainable ones are the JAX package's
+    """The 73 ported names; the trainable ones are the JAX package's
     trainable names among them (``flowformer_pp``, the VideoFlows,
-    ``memfof``, ``splatflow``, ``flow_anything``, the FlowSeeks and the
-    CCMRs are not trainable)."""
+    ``memfof``, ``splatflow``, ``flow_anything``, the FlowSeeks, the
+    CCMRs and the seven LiteFlowNets are not trainable)."""
     assert ptlflow_tpu_torch.get_model_names() == PORTED
-    assert len(PORTED) == 59
+    assert len(PORTED) == 73
     assert ptlflow_tpu_torch.get_trainable_model_names() == [
         n for n in PORTED if n in ptlflow_tpu.get_trainable_model_names()]
     for name in ("flowformer_pp", "videoflow_bof", "videoflow_mof",
                  "memfof", "splatflow", "flow_anything", "flowseek_t",
-                 "flowseek_m", "ccmr", "ccmr_p"):
+                 "flowseek_m", "ccmr", "ccmr_p", "liteflownet", "liteflownet2",
+                 "liteflownet2_pseudoreg", "liteflownet3",
+                 "liteflownet3_pseudoreg", "liteflownet3s",
+                 "liteflownet3s_pseudoreg"):
         assert name not in ptlflow_tpu_torch.get_trainable_model_names()
     for name in ("craft", "neuflow2", "streamflow", "csflow", "llaflow",
                  "llaflow_raft", "recover_cx", "recover_mn", "recover_rn",
@@ -107,7 +114,8 @@ def test_registry():
                  "gmflownet_mix", "matchflow", "matchflow_raft", "scv4",
                  "scv8", "ms_raft_p", "separableflow", "pwcnet",
                  "pwcnet_nodc", "irr_pwc", "scopeflow", "irr_pwcnet",
-                 "irr_pwcnet_irr"):
+                 "irr_pwcnet_irr", "flownets", "flownetc", "flownetsd",
+                 "flownetcs", "flownetcss", "flownet2", "fastflownet"):
         assert name in ptlflow_tpu_torch.get_trainable_model_names()
     assert ptlflow_tpu_torch.get_ptlflow_trained_model_names() == [
         "ccmr", "ccmr_p", "dpflow", "flowseek_m", "flowseek_t", "gma",
@@ -247,7 +255,15 @@ def test_checkpoint_round_trip(tmp_path):
     ("irr_pwc", "occ_shuffle_upsample.res_convs.1.0.weight"),
     ("scopeflow", "refine_occ.convs.6.0.bias"),
     ("irr_pwcnet", "flow_estimators.4.conv_last.0.weight"),
-    ("irr_pwcnet_irr", "conv_1x1.4.0.weight")])
+    ("irr_pwcnet_irr", "conv_1x1.4.0.weight"),
+    ("liteflownet", "matching_nets.4.up_corr.weight"),
+    ("liteflownet2", "regularization_nets.3.dist.1.weight"),
+    ("liteflownet2_pseudoreg", "pseudo_regularization.feat_net.0.weight"),
+    ("liteflownet3", "modulation_nets.1.mod_scalar_net.2.weight"),
+    ("liteflownet3_pseudoreg", "pseudo_subpixel.up_flow.weight"),
+    ("liteflownet3s", "deformation_nets.0.up_conf.weight"),
+    ("liteflownet3s_pseudoreg", "regularization_nets.0.conf_pred.0.weight"),
+    ("fastflownet", "decoder6.conv4.0.weight")])
 def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     """A Lightning-style .ckpt in the reference's layout, converted from a
     JAX tree (MemFlow nests its net under ``network.``, LCV-RAFT stores
@@ -264,20 +280,25 @@ def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     and ``downsample.1``), CCMR's temperatures and layer scales,
     SeparableFlow's 3-D convolutions (a transposed one here) and
     BatchNorm3d, PWC-Net's transposed convolutions and dilated context,
-    IRR's per-level and shared estimators and occlusion networks), loads into
+    IRR's per-level and shared estimators and occlusion networks,
+    LiteFlowNet's grouped transposed convolutions (the 49-group correlation
+    upsampler, the 2-group flow upsamplers), separable distance heads,
+    pseudo stages, deformation and modulation networks and confidence
+    heads, FastFlowNet's grouped decoder convolutions), loads into
     ``get_model`` strictly, every tensor equal.  WAFT's Twins checkpoint
     also holds timm's classifier ``norm.``/``head.``, which the load
     drops."""
     import jax
 
     from ptlflow_tpu_torch.utils.convert import state_dict_from_jax
-    from tests.test_torch_train import random_params
 
     jmodel = ptlflow_tpu.get_model_reference(name)()
     shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
     target = ptlflow_tpu_torch.get_model_reference(name)()
-    state = state_dict_from_jax(
-        random_params(shapes, np.random.RandomState(9)), target)
+    # seeded normal leaves: the layout is under test here, not the scale
+    rng = np.random.default_rng(9)
+    state = state_dict_from_jax(jax.tree_util.tree_map(
+        lambda s: rng.standard_normal(s.shape, np.float32), shapes), target)
     assert any(k.startswith(extra) for k in state)
     timm = {f"encoder.backbone.{k}": torch.zeros(2)
             for k in ("norm.weight", "head.weight", "head_drop.p")
@@ -290,6 +311,43 @@ def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
                                         device="cpu")
     for k, v in model.state_dict().items():
         torch.testing.assert_close(v, state[k], rtol=0, atol=0, msg=k)
+
+
+@pytest.mark.parametrize("name,extra,args", [
+    ("flownets", "upsampled_flow6_to_5.weight", {}),
+    ("flownetc", "conv_redir.0.weight", {}),
+    ("flownetsd", "inter_conv2.0.weight", {}),
+    ("flownetcs", "flownets_1.conv1.0.weight", {}),
+    ("flownetcss", "flownets_2.predict_flow2.bias", {}),
+    ("flownet2", "flownetfusion.inter_conv0.0.weight", {}),
+    ("flownet2", "flownets_d.inter_conv2.1.running_var",
+     {"batch_norm": True})])
+def test_reference_layout_loads_at_registered_width(name, extra, args):
+    """FlowNet's six names at their registered width (39 to 163 million
+    parameters), and ``flownet2`` with ``batch_norm`` (every convolution
+    without its bias, a BatchNorm after it): the JAX tree's every leaf, as
+    zeros of its shape, converted by ``state_dict_from_jax`` holds the
+    names and shapes of the port's ``state_dict`` (the sub-networks
+    ``flownetc.``, ``flownets_1.``, ``flownets_2.``, ``flownets_d.`` and
+    ``flownetfusion.`` of the reference's checkpoints among them) and loads
+    strictly into the model built on the meta device.  The parity tests
+    hold the values; a checkpoint file of ``flownet2`` would be 650 MB."""
+    import jax
+
+    from ptlflow_tpu_torch.utils.convert import state_dict_from_jax
+
+    jmodel = ptlflow_tpu.get_model_reference(name)(**args)
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
+    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                   shapes)
+    with torch.device("meta"):
+        target = ptlflow_tpu_torch.get_model_reference(name)(**args)
+    state = state_dict_from_jax(zeros, target)
+    assert any(k.startswith(extra) for k in state)
+    assert {k: v.shape for k, v in state.items()} == {
+        k: v.shape for k, v in target.state_dict().items()}
+    target.load_state_dict(state, strict=True, assign=True)
+    assert all(p.device.type == "cpu" for p in target.parameters())
 
 
 def test_named_checkpoint_needs_the_cache(tmp_path, monkeypatch):

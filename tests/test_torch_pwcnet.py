@@ -64,19 +64,42 @@ def build(name, seed, damped=("predict_flow*", "dc_conv7"), factor=0.1,
     return jmodel, tmodel, params
 
 
-@pytest.mark.parametrize("name", ["pwcnet", "pwcnet_nodc"])
-def test_eval_forward_matches_jax(name):
-    """``flows`` at 64x96 within 5e-3 px of the JAX package's, no autograd
-    graph, flows of a few pixels."""
-    jmodel, tmodel, _ = build(name, 100)
+@pytest.fixture(scope="module")
+def both_forwards():
+    """(the port's models and the JAX package's flows by name, the images):
+    ``pwcnet_nodc`` takes ``pwcnet``'s draw without the dilated-context
+    refinement, and one compilation runs both JAX forwards, whose common
+    pyramid and decoders XLA computes once."""
+    jdc, tdc, params = build("pwcnet", 100)
+    jnodc = ptlflow_tpu.get_model_reference("pwcnet_nodc")()
+
+    def nodc(p):
+        return {k: v for k, v in p.items() if not k.startswith("dc_conv")}
+
+    tnodc = ptlflow_tpu_torch.get_model("pwcnet_nodc", device="cpu")
+    tnodc.load_state_dict(state_dict_from_jax(nodc(params), tnodc),
+                          strict=True)
     images = np.random.RandomState(101).rand(1, 2, 3, H, W).astype(
         np.float32)
     x = jnp.asarray(images)
-    want = compile_o0(lambda p, x: jmodel.forward(p, {"images": x}),
-                      jmodel.params, x)(jmodel.params, x)
-    got = tmodel({"images": torch.from_numpy(images)})
+
+    def forwards(p, x):
+        return (jdc.forward(p, {"images": x})["flows"],
+                jnodc.forward(nodc(p), {"images": x})["flows"])
+
+    want = compile_o0(forwards, jdc.params, x)(jdc.params, x)
+    return ({"pwcnet": tdc, "pwcnet_nodc": tnodc},
+            dict(zip(("pwcnet", "pwcnet_nodc"), want)), images)
+
+
+@pytest.mark.parametrize("name", ["pwcnet", "pwcnet_nodc"])
+def test_eval_forward_matches_jax(name, both_forwards):
+    """``flows`` at 64x96 within 5e-3 px of the JAX package's, no autograd
+    graph, flows of a few pixels."""
+    tmodels, wants, images = both_forwards
+    want = np.asarray(wants[name])
+    got = tmodels[name]({"images": torch.from_numpy(images)})
     assert got["flows"].shape == (1, 1, 2, H, W)
     assert got["flows"].grad_fn is None
-    np.testing.assert_allclose(got["flows"].numpy(),
-                               np.asarray(want["flows"]), atol=5e-3)
-    assert 1.0 < np.abs(np.asarray(want["flows"])).max() < 100.0
+    np.testing.assert_allclose(got["flows"].numpy(), want, atol=5e-3)
+    assert 1.0 < np.abs(want).max() < 100.0

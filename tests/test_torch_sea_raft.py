@@ -100,12 +100,21 @@ def calibrate_norms(jmodel, params, images):
 
 
 _JAX_TWINS = {}
+# names whose JAX class computes another name's forward once the arguments
+# set what the two differ in: ``SEARAFT_S`` only names its checkpoints,
+# ``SEARAFT_L`` is ``SEARAFT_M`` with 12 iterations
+SAME_AS = {"sea_raft_s": ("sea_raft", ()), "sea_raft_l": ("sea_raft_m",
+                                                           ("iters",))}
 
 
 def jax_twin(name, **args):
     """The JAX package's ``name`` built once per (name, args) for the
     module: its jitted forwards (``infer``, ``calibrate_norms``) carry over
-    to the next test that asks for it."""
+    to the next test that asks for it, a ``SAME_AS`` name's to its twin's
+    (one compilation for two names)."""
+    twin, needs = SAME_AS.get(name, (name, ()))
+    if all(k in args for k in needs):
+        name = twin
     key = (name, tuple(sorted(args.items())))
     if key not in _JAX_TWINS:
         _JAX_TWINS[key] = ptlflow_tpu.get_model_reference(name)(**args)
