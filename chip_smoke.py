@@ -210,6 +210,22 @@ Phases, each of which must pass, else the script exits non-zero:
     128x192 of ``flownetc``, ``flownet2`` (its loss from full size) and
     ``fastflownet`` on both; and train the three at 384x512 at the first
     batch of (10, 8, 6, 4, 2) that fits.
+19. MaskFlowNet (``maskflownet_s``, ``maskflownet``), HD3 (``hd3``,
+    ``hd3_ctxt``), STaRFlow and DICL, on the local correlation, the
+    deformable convolution, HD3's match densities and DICL's learned
+    matching volume (plain PyTorch; no lookup launch): serve 3 cold pairs
+    at 436x1024 through each (STaRFlow 3 windows of 4 frames, its
+    backward flows and occlusions checked; ``maskflownet_s``'s ``occs``),
+    time each fp32 forward with the CUDA-event ms and calls of those ops,
+    profile ``maskflownet``, ``hd3`` and ``dicl`` once each; the
+    deformable convolution and its gradients at MaskFlowNet's 1/4 level on
+    the card against the CPU; the flows (and occlusions) of all six at
+    256x320 on the card against the CPU, HD3's argmax cells replayed on the
+    CPU; one train step of ``maskflownet`` and ``hd3`` at 128x192 and of
+    ``dicl`` at 128x256 on both (HD3's and DICL's, ill-conditioned in
+    float32, in float64 too, and in float32 against the CPU's own float32
+    spread); and train the five trainable names
+    at 384x512 at the first batch of (10, 8, 6, 4, 2) that fits.
 
 Phases 10-16 time their forwards but profile none (the script's time went
 to phase 17; PERF.md section 5 keeps the profiles of their last profiled
@@ -229,8 +245,8 @@ card's name and power limit (after ``{"harness": ...}``,
 ``{"train_cli": ...}``, ``{"flowformer": ...}``, ``{"sk_family": ...}``,
 ``{"recurrent_pyramid": ...}``, ``{"video_and_attention": ...}``,
 ``{"volume_and_backbone": ...}``, ``{"slice13": ...}``,
-``{"slice14": ...}``, ``{"slice15": ...}`` and ``{"slice16": ...}``,
-phases 8-18's numbers), and
+``{"slice14": ...}``, ``{"slice15": ...}``, ``{"slice16": ...}`` and
+``{"slice17": ...}``, phases 8-19's numbers), and
 the last
 line ``{"ok": true, "device": {...}}``.  With no card it prints no result
 and exits 2.
@@ -302,6 +318,12 @@ FWD_REPS, FWD_WARMUPS = 1, 0
 # gradient is rounding, as where it is zero in exact arithmetic).
 GRAD_RTOL, GRAD_FLOOR = 1e-3, 1e-6
 RTOL_LOSS, ATOL_BN = 1e-5, 1e-5
+# An ill-conditioned step in float32: the card's gradient and BatchNorm
+# statistics within SPREAD_FACTOR times the CPU's own float32 spread
+# (``train_step_card_vs_cpu``).  On an H100, HD3's and DICL's steps at 5
+# batch seeds each put the card 0.42-2.34 times that spread off the CPU
+# (the BatchNorm statistics 1.35-1.80 times): twice the largest reading
+SPREAD_FACTOR = 5.0
 # Phase 9: the training entry point with raft-train1-chairs.yaml
 RAFT_CHAIRS_CONFIG = "ptlflow_tpu/models/raft/configs/raft-train1-chairs.yaml"
 CHAIRS_H, CHAIRS_W = 384, 512  # FlyingChairs frames
@@ -525,6 +547,48 @@ S16_DAMPED = {"flownet": ("*predict_flow*",),
                                 "pseudo_subpixel.flow_net.1",
                                 "deformation_nets.*.disp_pred"),
               "fastflownet": ("decoder*.conv7",)}
+# Phase 19: MaskFlowNet (+S), HD3 (+ctxt), STaRFlow and DICL, on the local
+# correlation, the deformable convolution, HD3's densities and DICL's
+# matching volume (no lookup launch)
+S17_NAMES = ("maskflownet_s", "maskflownet", "hd3", "hd3_ctxt", "starflow",
+             "dicl")
+S17_PROFILED = ("maskflownet", "hd3", "dicl")
+# frames a served window (STaRFlow's recurrence runs over 4)
+S17_WINDOW = {"starflow": 4}
+# one train step card against CPU: (model, batch seed, size, ill
+# conditioned).  HD3's and DICL's float32 steps are ill-conditioned: the
+# port's own float32 step is 4e-3 to 3.5e-2 (HD3's DLA-34, batch seeds
+# 1-9, 128x192 to 256x320) and 3.6e-4 to 1.3e-3 (DICL, batch 1-2; each
+# BatchNorm's backward sums ~1e5 terms that cancel, tests/test_torch_dicl.py)
+# of its whole gradient off its float64 one; they are held in float64 and,
+# in float32, to SPREAD_FACTOR times the spread this run measures
+# (``train_step_card_vs_cpu``)
+S17_STEP_CHECK = (("maskflownet", 6, (128, 192), False),
+                  ("hd3", 6, (128, 192), True),
+                  ("dicl", 6, (128, 256), True))
+S17_TRAIN = ("maskflownet_s", "maskflownet", "hd3", "hd3_ctxt", "dicl")
+S17_TRAIN_SIZE = (384, 512)
+S17_TRAIN_BATCHES = (10, 8, 6, 4, 2)
+S17_TRAIN_STEPS = 2
+# the heads damped as the CPU tests damp them: (module patterns, factor)
+S17_DAMPED = {
+    "maskflownet": (("*pred_flow*", "*pred_mask*", "*dc_conv7"), 0.1),
+    "hd3": (("*cls.2", "Decoder_4.cls"), 0.1),
+    "starflow": (("flow_and_occ_estimators.conv_last.0",
+                  "context_networks.convs.6.0",
+                  "occ_shuffle_upsample.out_convs.0"), 0.02),
+    "dicl": (("context_net2.6", "context_net3.6", "context_net4.5",
+              "context_net5.4", "context_net6.3",
+              "dap_layer*.dap_layer.conv"), 0.1)}
+# HD3's density heads' centre-cell logit (``condition_slice17``)
+HD3_CENTRE_LOGIT = 4.0
+# occlusions in [0, 1], card against CPU at 256x320
+ATOL_OCCS = 1e-4
+# the deformable convolution and its gradients, card against CPU, by each
+# tensor's largest element (float32 sums; the sampler's input gradient
+# adds by atomics on the card)
+RTOL_DEFORM = 1e-4
+
 # softsplat_average, card against CPU: float32 sums of a few terms whose
 # atomics add in no fixed order on the card
 ATOL_SPLAT = 1e-5
@@ -1206,6 +1270,93 @@ def condition_slice16(torch, name: str, model) -> None:
                     mod.bias.mul_(0.1)
 
 
+def s17_family(name: str) -> str:
+    """The key of phase 19's per-family tables (``S17_DAMPED``)."""
+    return {"maskflownet_s": "maskflownet", "hd3_ctxt": "hd3"}.get(name,
+                                                                   name)
+
+
+def condition_slice17(torch, name: str, model, images=None) -> None:
+    """Phase 19's models, conditioned as their CPU tests are
+    (``S17_DAMPED``): MaskFlowNet's flow and mask heads and context output,
+    HD3's density heads and DICL's displacement projections and context
+    outputs by 0.1, STaRFlow's shared estimator, context and occlusion
+    upsampler outputs by 0.02.  HD3's density heads also favour the
+    support's centre cell by HD3_CENTRE_LOGIT, as a trained model's
+    residual densities do, and its BatchNorms take ``images``' statistics
+    (``calibrate_norms``): at the init's statistics DLA-34's eval
+    activations grow until the random heads peak at the support's edge,
+    each level adds its widest step, and the ~400 px flows at 256x320 move
+    by 1.1e-2 px between two float32 runs (the card's and the CPU's, the
+    argmax cells replayed)."""
+    import fnmatch
+
+    patterns, factor = S17_DAMPED[s17_family(name)]
+    with torch.no_grad():
+        for mod_name, mod in model.named_modules():
+            if (any(fnmatch.fnmatch(mod_name, p) for p in patterns)
+                    and getattr(mod, "weight", None) is not None):
+                mod.weight.mul_(factor)
+                if mod.bias is not None:
+                    mod.bias.mul_(factor)
+                    if s17_family(name) == "hd3":
+                        mod.bias[mod.bias.numel() // 2] += HD3_CENTRE_LOGIT
+    if s17_family(name) == "hd3" and images is not None:
+        calibrate_norms(torch, model, images)
+
+
+class ArgmaxReplay:
+    """Every ``torch.argmax`` of a run on the card recorded, then given to
+    a run on the CPU, as ``TopkReplay`` does for ``torch.topk``: HD3's
+    density cells, where a near tie in float32 may be broken either way
+    and move a flow by a support cell.  Counts the elements whose own
+    argmax differs from the card's."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.argmax = torch.argmax
+        self.recorded = []
+        self.elements = self.differ = 0
+
+    def record(self):
+        self.recorded = []
+
+        def argmax(x, *args, **kw):
+            out = self.argmax(x, *args, **kw)
+            self.recorded.append(out.cpu())
+            return out
+
+        return swapped(self.torch, "argmax", argmax, self)
+
+    def replay(self):
+        pending = iter(self.recorded)
+        self.elements = self.differ = 0
+
+        def argmax(x, *args, **kw):
+            own = self.argmax(x, *args, **kw)
+            idx = next(pending).to(x.device)
+            if idx.shape != own.shape:
+                raise AssertionError(f"argmax replay: {tuple(idx.shape)} "
+                                     f"recorded, {tuple(own.shape)} asked")
+            self.elements += own.numel()
+            self.differ += int((idx != own).sum())
+            return idx
+
+        return swapped(self.torch, "argmax", argmax, self)
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, fn, value=None):
+    """``module.name`` replaced by ``fn`` within the block, which gets
+    ``value``."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield value
+    finally:
+        setattr(module, name, saved)
+
+
 class TopkReplay:
     """Every ``torch.topk`` of a run on the card recorded, then given to a
     run on the CPU: the quadtree attention's and SCV's selections, where a
@@ -1228,7 +1379,7 @@ class TopkReplay:
             self.recorded.append(out.indices.cpu())
             return out
 
-        return self._patched(topk)
+        return swapped(self.torch, "topk", topk, self)
 
     def replay(self):
         torch = self.torch
@@ -1246,20 +1397,7 @@ class TopkReplay:
             self.differ += int(moved.sum())
             return torch.return_types.topk((x.gather(-1, idx), idx))
 
-        return self._patched(topk)
-
-    def _patched(self, fn):
-        import contextlib
-
-        @contextlib.contextmanager
-        def patched():
-            self.torch.topk = fn
-            try:
-                yield self
-            finally:
-                self.torch.topk = self.topk
-
-        return patched()
+        return swapped(self.torch, "topk", topk, self)
 
 
 def parity_weights(torch, name: str, model, images) -> None:
@@ -1282,7 +1420,11 @@ def parity_weights(torch, name: str, model, images) -> None:
     GMFlowNet: ``condition_slice13``.  MatchFlow, SCV, MS-RAFT+, CCMR:
     ``condition_slice14``.  SeparableFlow, PWC-Net, IRR:
     ``condition_slice15``.  FlowNet, LiteFlowNet, FastFlowNet:
-    ``condition_slice16``."""
+    ``condition_slice16``.  MaskFlowNet, HD3, STaRFlow, DICL:
+    ``condition_slice17``."""
+    if name in S17_NAMES:
+        condition_slice17(torch, name, model, images)
+        return
     if name in S16_NAMES:
         condition_slice16(torch, name, model)
         return
@@ -1388,20 +1530,27 @@ def served_model(torch, name: str, args: dict, images):
 
 def train_step_card_vs_cpu(torch, name: str, dev, args=None,
                            lookups=2, frames: int = 2,
-                           batch_seed: int = 5, size=(128, 160)) -> dict:
-    """One train step of ``name`` at 128x160 (or ``size``), batch 2, 2
-    iterations (or
-    the ``args`` that set 2 decoder steps, or 2 steps a level), on the
-    CPU and on the card from the same weights (``parity_weights``): the
-    loss within RTOL_LOSS, the BatchNorm statistics within ATOL_BN and the
-    whole gradient within GRAD_RTOL, by its largest element and by its
-    norm; the per-tensor figures printed, and where a check fails, beside
-    those of the CPU again with the images one fp32 rounding off (how far
-    rounding alone moves this step), before the failure is raised.  The card
-    step must launch each kernel ``lookups`` times (a pair: the forward
-    kernel's launches, the backward's).  The batch holds sequences of
-    ``frames`` frames (``train_batch``, seeded with ``batch_seed``).  The
-    CPU steps take the card step's top-k selections (``TopkReplay``)."""
+                           batch_seed: int = 5, size=(128, 160),
+                           ill_conditioned: bool = False) -> dict:
+    """One train step of ``name`` at 128x160 (or ``size``), batch 2,
+    2 iterations (or the ``args`` that set 2 decoder steps, or 2 steps a
+    level), on the CPU and on the card from the same weights
+    (``parity_weights``), in float32: the loss within RTOL_LOSS, the
+    BatchNorm statistics within ATOL_BN and the whole gradient within
+    GRAD_RTOL, by its largest element and by its norm; the per-tensor
+    figures printed, and where a check fails, beside those of the CPU
+    again with the images one fp32 rounding off (how far rounding alone
+    moves this step), before the failure is raised.  An
+    ``ill_conditioned`` step, one that float32 rounding alone moves past
+    those tolerances, is held to them in float64, and in float32 to limits
+    this run measures: SPREAD_FACTOR times the larger of the CPU float32
+    step's distances from the CPU's step on the nudged images and from the
+    CPU's float64 step, by each metric (the BatchNorm statistics' limit is
+    ATOL_BN at least).  The card step must launch each kernel ``lookups``
+    times (a pair: the forward kernel's launches, the backward's).  The
+    batch holds sequences of ``frames`` frames (``train_batch``, seeded with
+    ``batch_seed``).  Every other step takes the card float32 step's top-k
+    selections (``TopkReplay``) and argmax indices (``ArgmaxReplay``)."""
     import ptlflow_tpu_torch
     from ptlflow_tpu_torch.nn import split_trainable
     from ptlflow_tpu_torch.ops import correlation as corr
@@ -1413,91 +1562,137 @@ def train_step_card_vs_cpu(torch, name: str, dev, args=None,
     parity_weights(torch, name, cpu_model, batch["images"])
     expected = lookups if isinstance(lookups, tuple) else (lookups, lookups)
     gpu_model = ptlflow_tpu_torch.get_model(name, args=args)
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    # the CPU again, on images one fp32 rounding off (x (1 + 2^-23)), where
-    # a check fails
+    start = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    # the CPU again, on images one fp32 rounding off (x (1 + 2^-23))
     nudged = dict(batch, images=batch["images"] * (1 + 2.0 ** -23))
     step_out, launched = {}, {}
 
-    def step(label, model, where, b):
+    def step(label, model, where, b, dtype=torch.float32):
+        if dtype != torch.float32:
+            model.to(dtype)
+        model.load_state_dict(start)
         params, _ = split_trainable(model)
         corr.corr_lookup_kernel.launches = 0
         corr.corr_lookup_backward_kernel.launches = 0
         loss, grads = ttrain.loss_and_grads(
-            model, params, {k: v.to(where) for k, v in b.items()})
+            model, params, {k: v.to(where, dtype) for k, v in b.items()})
         step_out[label] = (loss.item(), list(params), [g.cpu() for g in grads],
                            {k: v.cpu() for k, v in bn_stats(model).items()},
                            ttrain.global_norm(grads).item())
         launched[label] = (corr.corr_lookup_kernel.launches,
                            corr.corr_lookup_backward_kernel.launches)
 
-    replay = TopkReplay(torch)
-    with replay.record():
+    replay, areplay = TopkReplay(torch), ArgmaxReplay(torch)
+    with replay.record(), areplay.record():
         step("card", gpu_model, dev, batch)
-    with replay.replay():
+    with replay.replay(), areplay.replay():
         step("cpu", cpu_model, "cpu", batch)
     topk_rows = [replay.differ, replay.rows]
+    argmax_elements = [areplay.differ, areplay.elements]
+    if ill_conditioned:
+        for args_ in (("cpu nudged", cpu_model, "cpu", nudged),
+                      ("card float64", gpu_model, dev, batch, torch.float64),
+                      ("cpu float64", cpu_model, "cpu", batch,
+                       torch.float64)):
+            with replay.replay(), areplay.replay():
+                step(*args_)
     if replay.rows:
-        log(f"[4 card vs cpu] {name} train step: {replay.differ} of "
-            f"{replay.rows} top-k selections differ between the card and "
+        log(f"[4 card vs cpu] {name} train step: {topk_rows[0]} of "
+            f"{topk_rows[1]} top-k selections differ between the card and "
             f"the CPU; the CPU took the card's")
-    card_launches = launched["card"]
-    if card_launches != expected:
-        raise AssertionError(f"{name} card train step: launches "
-                             f"{card_launches}, expected {expected}")
-    (cl, names, cg, cs, cn), (gl, _, gg, gs, gn) = (step_out["cpu"],
-                                                    step_out["card"])
-    gmax = max(g.abs().max().item() for g in cg)
-    flat = torch.cat([g.flatten() for g in cg])
-    dflat = torch.cat([(a - b).flatten() for a, b in zip(gg, cg)])
-    glob_max = dflat.abs().max().item() / gmax
-    glob_norm = (dflat.norm() / flat.norm()).item()
+    if areplay.elements:
+        log(f"[4 card vs cpu] {name} train step: {argmax_elements[0]} of "
+            f"{argmax_elements[1]} argmax indices differ between the card "
+            f"and the CPU; the CPU took the card's")
+    for label, got in launched.items():
+        if label.startswith("card") and got != expected:
+            raise AssertionError(f"{name} {label} train step: launches "
+                                 f"{got}, expected {expected}")
 
-    def per_tensor(grads):
-        return sorted(((a - b).abs().max().item()
+    def gap(label, ref):
+        """(loss, gradient by its largest element, by its norm, BatchNorm
+        statistics) of step ``label`` against step ``ref``, relative to
+        ``ref``'s, in float64."""
+        (rl, _, rg, rs, _), (l, _, g, s, _) = step_out[ref], step_out[label]
+        d = torch.cat([(a.double() - b.double()).flatten()
+                       for a, b in zip(g, rg)])
+        flat = torch.cat([b.double().flatten() for b in rg])
+        bn = max(((s[k].double() - rs[k].double()).abs().max().item()
+                  for k in rs), default=0.0)
+        return (abs(l - rl) / abs(rl), d.abs().max().item()
+                / flat.abs().max().item(), (d.norm() / flat.norm()).item(),
+                bn)
+
+    def per_tensor(label, ref):
+        names, rg = step_out[ref][1], step_out[ref][2]
+        gmax = max(g.abs().max().item() for g in rg)
+        return sorted(((a.double() - b.double()).abs().max().item()
                        / max(b.abs().max().item(), GRAD_FLOOR / GRAD_RTOL
-                             * gmax), n) for n, a, b in zip(names, grads, cg))
+                             * gmax), n)
+                      for n, a, b in zip(names, step_out[label][2], rg))
 
-    bn_err = max(((gs[k] - cs[k]).abs().max().item() for k in cs),
-                 default=0.0)
-    loss_ok = abs(gl - cl) <= RTOL_LOSS * abs(cl)
-    bn_ok = bn_err <= ATOL_BN
-    grad_ok = glob_max <= GRAD_RTOL and glob_norm <= GRAD_RTOL
-    runs = [("card", gg)]
-    if not (loss_ok and bn_ok and grad_ok):
-        with replay.replay():
-            step("cpu nudged", cpu_model, "cpu", nudged)
-        runs.append(("CPU, input one rounding off",
-                     step_out["cpu nudged"][2]))
-    for label, grads in runs:
-        ratios = per_tensor(grads)
-        log(f"[4 card vs cpu] {name} train step, {label} against the CPU: "
+    def held(label, ref, limits):
+        """Log step ``label`` against step ``ref``; the first limit it
+        passes by name, or None."""
+        dl, gmax_rel, gnorm_rel, bn = gap(label, ref)
+        ratios = per_tensor(label, ref)
+        log(f"[4 card vs cpu] {name} train step, {label} against {ref}: "
             f"worst per-tensor max |dg| / max(max |g|, "
             f"{GRAD_FLOOR / GRAD_RTOL:g} max |g| of the model): "
             + ", ".join(f"{n} {r:.2e}" for r, n in ratios[-4:])
             + f" ({sum(r > GRAD_RTOL for r, _ in ratios)} of {len(ratios)} "
             f"over {GRAD_RTOL})")
-    log(f"[4 card vs cpu] {name} train step, 2x{size[0]}x{size[1]}, "
-        f"{expected} "
-        f"launches: loss "
-        f"{gl:.7f} on the card, {cl:.7f} on the CPU; grad norm {gn:.6f} / "
-        f"{cn:.6f}; the whole gradient: max |dg| / max |g| {glob_max:.2e}, "
-        f"|dg| / |g| {glob_norm:.2e} (tolerance {GRAD_RTOL}); BN statistics "
-        f"max |d| {bn_err:.2e} (tolerance {ATOL_BN})")
-    if not loss_ok:
-        raise AssertionError(f"{name} card train step: loss {gl} against "
-                             f"{cl}")
-    if not bn_ok:
-        raise AssertionError(f"{name} card train step: BN statistics "
-                             f"{bn_err}")
-    if not grad_ok:
-        raise AssertionError(f"{name} card train step: gradient {glob_max}, "
-                             f"{glob_norm}")
-    out = {"loss": [gl, cl], "grad_max_rel": glob_max,
-           "grad_norm_rel": glob_norm, "bn_err": bn_err,
-           "launches": card_launches}
+        lt, gt, nt, bt = limits
+        log(f"[4 card vs cpu] {name} train step, 2x{size[0]}x{size[1]}, "
+            f"{label} against {ref}, {expected} launches: loss "
+            f"{step_out[label][0]:.7f} / {step_out[ref][0]:.7f}; grad norm "
+            f"{step_out[label][4]:.6f} / {step_out[ref][4]:.6f}; the whole "
+            f"gradient: max |dg| / max |g| {gmax_rel:.2e} (limit {gt:.2e}), "
+            f"|dg| / |g| {gnorm_rel:.2e} (limit {nt:.2e}); BN statistics "
+            f"max |d| {bn:.2e} (limit {bt:.2e})")
+        for what, v, t in (("loss", dl, lt), ("gradient max", gmax_rel, gt),
+                           ("gradient norm", gnorm_rel, nt),
+                           ("BN statistics", bn, bt)):
+            if not v <= t:
+                return f"{what} {v:.3e} over {t:.3e}"
+        return None
+
+    fixed = (RTOL_LOSS, GRAD_RTOL, GRAD_RTOL, ATOL_BN)
+    if ill_conditioned:
+        spread = [max(a, b) for a, b in zip(gap("cpu nudged", "cpu"),
+                                            gap("cpu float64", "cpu"))]
+        limits = (RTOL_LOSS, SPREAD_FACTOR * spread[1],
+                  SPREAD_FACTOR * spread[2],
+                  max(ATOL_BN, SPREAD_FACTOR * spread[3]))
+        failed = held("card float64", "cpu float64", fixed)
+        failed32 = held("card", "cpu", limits)
+        failed = failed or failed32
+    else:
+        limits = fixed
+        failed = held("card", "cpu", fixed)
+        if failed:
+            with replay.replay(), areplay.replay():
+                step("cpu nudged", cpu_model, "cpu", nudged)
+            held("cpu nudged", "cpu", fixed)
+    if failed:
+        raise AssertionError(f"{name} card train step: {failed}")
+    dl, gmax_rel, gnorm_rel, bn = gap("card", "cpu")
+    out = {"loss": [step_out["card"][0], step_out["cpu"][0]],
+           "grad_max_rel": gmax_rel, "grad_norm_rel": gnorm_rel,
+           "bn_err": bn, "launches": launched["card"]}
+    if ill_conditioned:
+        out["limits"] = dict(zip(("loss", "grad_max_rel", "grad_norm_rel",
+                                  "bn_err"), limits))
+        for label, ref in (("cpu nudged", "cpu"), ("cpu float64", "cpu"),
+                           ("card", "cpu float64"),
+                           ("card float64", "cpu float64")):
+            out[f"{label} against {ref}"] = dict(zip(
+                ("loss", "grad_max_rel", "grad_norm_rel", "bn_err"),
+                gap(label, ref)))
     if topk_rows[1]:
         out["topk_rows_differing"] = topk_rows
+    if argmax_elements[1]:
+        out["argmax_differing"] = argmax_elements
     return out
 
 
@@ -2326,6 +2521,18 @@ def main(argv=None) -> int:
     for name, path in s16_train_paths.items():
         launches[path] = sum(s16["train"][name]["lookup"])
 
+    # ---------------------------------------------------------------- 19
+    t19 = time.perf_counter()
+    s17 = slice17_phase(torch, dev, tag)
+    log(f"[19] {time.perf_counter() - t19:.1f} s")
+    launches.update(s17["launches"])
+    s17_train_paths = {
+        name: (f"{name} train, {S17_TRAIN_STEPS} steps at {rec['size'][1]}x"
+               f"{rec['size'][0]}, batch {rec['batch']}")
+        for name, rec in s17["train"].items()}
+    for name, path in s17_train_paths.items():
+        launches[path] = sum(s17["train"][name]["lookup"])
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -2415,7 +2622,12 @@ def main(argv=None) -> int:
                s16["train_step_card_vs_cpu"][name]["launches"][1]
                for name, _, size in S16_STEP_CHECK},
             **{path: sum(s16["train"][name]["lookup_backward"])
-               for name, path in s16_train_paths.items()}),
+               for name, path in s16_train_paths.items()},
+            **{f"{name} train step at {size[1]}x{size[0]}":
+               s17["train_step_card_vs_cpu"][name]["launches"][1]
+               for name, _, size, _ in S17_STEP_CHECK},
+            **{path: sum(s17["train"][name]["lookup_backward"])
+               for name, path in s17_train_paths.items()}),
         "max_abs_err": bwd_err,
         "max_abs_grad": bwd_gmax,
         "ms": bwd_ms,
@@ -2468,6 +2680,7 @@ def main(argv=None) -> int:
     log(json.dumps({"slice15": {k: v for k, v in s15.items()
                                 if k != "kernels"}, "card": tag}))
     log(json.dumps({"slice16": s16, "card": tag}))
+    log(json.dumps({"slice17": s17, "card": tag}))
     log(tag)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -4969,6 +5182,234 @@ def slice16_phase(torch, dev, tag: str) -> dict:
             profile_runs=0, launches=(0, 0))
         out["train"][name]["size"] = list(S16_TRAIN_SIZE)
         log(f"[18 train] {name}: {time.perf_counter() - t0:.1f} s")
+        del model, tx
+        torch.cuda.empty_cache()
+    return out
+
+
+def deform_conv_card_vs_cpu(torch, dev, tag: str) -> dict:
+    """The deformable convolution at MaskFlowNet's 1/4 level at 1024x436
+    (resized to 1024x448: 32 channels of 112x256), offsets of a few
+    pixels, some past the edges: its output and the gradients of the map,
+    the offsets, the weight and the bias under a random cotangent, card
+    against CPU, by each tensor's largest element; and its forward and
+    forward-plus-backward ms on the card by CUDA events.  The offsets'
+    fractions lie in [0.1, 0.9]: bilinear sampling's gradient in its
+    coordinates jumps where a coordinate crosses a whole pixel, and the
+    card and the CPU round a coordinate within ~1e-6 px of one to
+    different cells (with unbounded fractions, the offsets' gradient was
+    0.30 of its largest element apart at one such tap on an H100)."""
+    from ptlflow_tpu_torch.ops.deform_conv import deform_conv2d
+
+    g = torch.Generator().manual_seed(191)
+    b, c, h, w = 1, 32, 112, 256
+    x = torch.randn(b, c, h, w, generator=g)
+    off = (torch.floor(3.0 * torch.randn(b, 18, h, w, generator=g))
+           + 0.1 + 0.8 * torch.rand(b, 18, h, w, generator=g))
+    weight = torch.randn(c, c, 3, 3, generator=g) / (9 * c) ** 0.5
+    bias = torch.randn(c, generator=g)
+    cot = torch.randn(b, c, h, w, generator=g)
+    got = []
+    for where in (dev, torch.device("cpu")):
+        args = [t.to(where).requires_grad_() for t in (x, off, weight, bias)]
+        out = deform_conv2d(*args)
+        grads = torch.autograd.grad((out * cot.to(where)).sum(), args)
+        got.append([t.detach().cpu() for t in (out, *grads)])
+    names = ("output", "x", "offset", "weight", "bias")
+    rel = {n: (a - r).abs().max().item() / r.abs().max().item()
+           for n, a, r in zip(names, *got)}
+    log(f"[19 card vs cpu] deform_conv2d {c}x{h}x{w}: max |d| / max |v| "
+        + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
+        + f" (tolerance {RTOL_DEFORM})")
+    if not all(v <= RTOL_DEFORM for v in rel.values()):
+        raise AssertionError(f"deform_conv2d card vs CPU: {rel}")
+    args = [t.to(dev) for t in (x, off, weight, bias)]
+    fwd_ms = timed_ms(torch, lambda: deform_conv2d(*args), 10)
+    leaves = [t.requires_grad_() for t in args]
+    cd = cot.to(dev)
+
+    def fwd_bwd():
+        torch.autograd.grad((deform_conv2d(*leaves) * cd).sum(), leaves)
+
+    bwd_ms = timed_ms(torch, fwd_bwd, 10)
+    log(f"[19 forward] [{tag}] deform_conv2d {c}x{h}x{w}: {fwd_ms:.3f} ms "
+        f"forward, {bwd_ms:.3f} ms forward and backward by CUDA events "
+        f"(median of 10)")
+    return {"rel_err": rel, "ms": fwd_ms, "fwd_bwd_ms": bwd_ms,
+            "shape": [b, c, h, w]}
+
+
+def slice17_phase(torch, dev, tag: str) -> dict:
+    """Phase 19: MaskFlowNet (``maskflownet_s``, ``maskflownet``), HD3
+    (``hd3``, ``hd3_ctxt``), STaRFlow and DICL on the card, fp32, TF32
+    off, conditioned as their CPU tests are (``condition_slice17``).
+    Serves 3 cold pairs of one sequence at 436x1024 through each
+    (STaRFlow: 3 windows of 4 frames), counting no lookup launch and
+    checking no autograd graph, ``occs`` and STaRFlow's backward outputs;
+    times each fp32 forward with the device ms and calls of its
+    deformable convolutions, correlations, densities or matching volumes
+    by CUDA events around their calls (``timed_spans``), profiles the
+    forwards of S17_PROFILED once each; holds the deformable convolution
+    and its gradients (``deform_conv_card_vs_cpu``) and every name's
+    flows (and occlusions) at 256x320 card against CPU, HD3's argmax
+    cells replayed on the CPU (``ArgmaxReplay``); one train step card
+    against CPU (S17_STEP_CHECK); and trains S17_TRAIN at 384x512 at the
+    first of S17_TRAIN_BATCHES that fits (unprofiled)."""
+    import importlib
+
+    import ptlflow_tpu_torch
+    from ptlflow_tpu_torch.parallel import train as ttrain
+    from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+
+    dcn = importlib.import_module("ptlflow_tpu_torch.ops.deform_conv")
+    mfn = importlib.import_module(
+        "ptlflow_tpu_torch.models.maskflownet.maskflownet")
+    hd3 = importlib.import_module("ptlflow_tpu_torch.models.hd3.hd3")
+    sfm = importlib.import_module("ptlflow_tpu_torch.models.starflow.starflow")
+    dicl = importlib.import_module("ptlflow_tpu_torch.models.dicl.dicl")
+    spans_of = {
+        "maskflownet": [(dcn, "deform_conv2d", "deform_conv2d"),
+                        (mfn, "local_correlation", "local_correlation")],
+        "hd3": [(hd3, "density2vector", "density2vector"),
+                (hd3, "local_correlation", "local_correlation"),
+                (hd3, "hd3_flow_warp", "hd3_flow_warp")],
+        "starflow": [(sfm, "compute_cost_volume", "local_correlation")],
+        "dicl": [(dicl.DICL, "compute_cost", "matching_volume"),
+                 (dicl, "flow_regression", "flow_regression")]}
+    out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
+           "peak_gib": {}, "forward_gib": {}, "launches": {}, "spans": {},
+           "card_vs_cpu_px": {}, "occs_card_vs_cpu": {}}
+    # cuDNN's convolution kernels, the samplers (the deformable
+    # convolution's taps, the warps), the correlation's unfold, products
+    # and sums, softmaxes, gathers and scatters, concatenations
+    named = {"cuDNN fprop": "fprop", "samplers": "sampler",
+             "im2col": "im2col", "elementwise": "elementwise_kernel",
+             "reductions": "reduce", "softmax": "softmax",
+             "gather/scatter": "scatter_gather", "cat": "CatArrayBatchedCopy"}
+    frames = smooth_frames(191, H, W, 6, shift=(2, 1))
+    for name in S17_NAMES:
+        t0 = time.perf_counter()
+        model = ptlflow_tpu_torch.get_model(name)
+        window = S17_WINDOW.get(name, 2)
+        seq = frames[:window + 2]
+        parity_weights(torch, name, model,
+                       IOAdapter(model).prepare_inputs(seq[:window])["images"])
+        n, x = serve_sequence(torch, name, model, seq, 0,
+                              (1, window - 1, 2, H, W), 19, window=window,
+                              warm=False)
+        key = f"{name} serve at {W}x{H}, 3 windows of {window} frames"
+        out["launches"][key] = n
+        if n != 0:
+            raise AssertionError(f"{key}: {n} lookup launches")
+        if name in ("maskflownet_s", "starflow"):
+            adapter = IOAdapter(model)
+            with torch.no_grad():
+                res = adapter.unscale(model(adapter.prepare_inputs(
+                    seq[:window])))
+            for k in ("occs", "flows_b", "occs_b"):
+                if k not in res:
+                    continue
+                v = res[k]
+                want = (1, window - 1, 1 + k.startswith("flow"), H, W)
+                if (tuple(v.shape) != want or not torch.isfinite(v).all()
+                        or v.grad_fn is not None or (k.startswith("occ") and
+                                                     not 0 <= v.min() <= v.max() <= 1)):
+                    raise AssertionError(f"{name}: {k} {tuple(v.shape)} in "
+                                         f"[{v.min()}, {v.max()}]")
+                log(f"[19 serve] {name}: {k} {tuple(v.shape)} finite, in "
+                    f"[{v.min().item():.3f}, {v.max().item():.3f}]")
+        label = f"{name} fp32"
+        profiled = name in S17_PROFILED
+        with timed_spans(torch, spans_of[s17_family(name)]) as recs:
+            time_forward(torch, model, x["images"], label, tag,
+                         "no lookups", 19, out, named, reps=FWD_REPS,
+                         warmups=FWD_WARMUPS, profiled=profiled,
+                         ranges=list(recs), profile_runs=1)
+            rec = span_ms(torch, model, x["images"], recs)
+        fwd_ms = out["forward_ms"][label]
+        for span, r in rec.items():
+            if profiled:
+                prof = out["profile"][label]
+                r["launches"] = prof["range_launches"][span]
+                r["kernel_ms"] = prof["range_kernel_ms"][span]
+            log(f"[19 forward] [{tag}] {label}: {span} {r['calls']} calls, "
+                f"{r['ms']:.3f} ms stream-elapsed by CUDA events around them "
+                f"(the card's idle gaps included; {r['ms'] / fwd_ms:.1%} of "
+                f"the {fwd_ms:.3f} ms forward)"
+                + (f", {fmt_ms(r['kernel_ms'])} of kernel time under them by "
+                   f"the profiler, {r['launches']} kernel launches"
+                   if profiled else ""))
+        out["spans"][label] = rec
+        log(f"[19 serve] {name}: {time.perf_counter() - t0:.1f} s with its "
+            f"timing")
+        del model, x
+        torch.cuda.empty_cache()
+
+    # card against CPU: the deformable convolution, then every name at
+    # 256x320, HD3's argmax cells replayed
+    t0 = time.perf_counter()
+    out["deform_conv"] = deform_conv_card_vs_cpu(torch, dev, tag)
+    out["argmax_differing"] = {}
+    for name in S17_NAMES:
+        window = S17_WINDOW.get(name, 2) - 1
+        seq = smooth_frames(7, 256, 320, window + 1, shift=(3, 2))
+        x = IOAdapter(device="cpu").prepare_inputs(seq)
+        xd = x["images"].to(dev)
+        gpu_model, cpu_model = card_and_cpu(torch, name, xd, served=False)
+        replay = ArgmaxReplay(torch)
+        with replay.record():
+            got = gpu_model({"images": xd})
+        with replay.replay():
+            want = cpu_model(x)
+        if replay.elements:
+            out["argmax_differing"][name] = [replay.differ, replay.elements]
+        diff = max((got[k].cpu() - want[k]).abs().max().item()
+                   for k in want if k.startswith("flows"))
+        out["card_vs_cpu_px"][name] = diff
+        extra = ""
+        occ = [k for k in want if k.startswith("occs")]
+        if occ:
+            od = max((got[k].cpu() - want[k]).abs().max().item()
+                     for k in occ)
+            out["occs_card_vs_cpu"][name] = od
+            extra = (f"; {' and '.join(occ)} max |d| {od:.3e} (tolerance "
+                     f"{ATOL_OCCS})")
+            if not od <= ATOL_OCCS:
+                raise AssertionError(f"{name}: occlusions differ by {od}")
+        if replay.elements:
+            extra += (f"; {replay.differ} of {replay.elements} argmax cells "
+                      f"differ on the CPU's own, the CPU took the card's")
+        log(f"[19 card vs cpu] {name} 256x320: max |dflow| {diff:.3e} px "
+            f"(flow up to {want['flows'].abs().max().item():.2f} px, "
+            f"tolerance {ATOL_CARD_CPU_PX} px){extra}")
+        if not diff <= ATOL_CARD_CPU_PX:
+            raise AssertionError(f"{name}: card and CPU differ by {diff} px")
+        del cpu_model, gpu_model, got, want, xd
+    log(f"[19 card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # one train step card against CPU
+    t0 = time.perf_counter()
+    out["train_step_card_vs_cpu"] = {
+        name: train_step_card_vs_cpu(
+            torch, name, dev, {}, (0, 0), batch_seed=seed, size=size,
+            ill_conditioned=ill)
+        for name, seed, size, ill in S17_STEP_CHECK}
+    log(f"[19 train step card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # training at the first batch that fits
+    out["train"] = {}
+    for name in S17_TRAIN:
+        t0 = time.perf_counter()
+        model = ptlflow_tpu_torch.get_model(name)
+        parity_weights(torch, name, model, None)
+        tx = ttrain.make_optimizer(lr=1e-4, wdecay=4e-4, total_steps=120000,
+                                   pct_start=0.05, grad_clip=1.0)
+        out["train"][name] = train_at_largest_batch(
+            torch, dev, tag, model, tx, S17_TRAIN_BATCHES, S17_TRAIN_STEPS,
+            0, name, 19, size=S17_TRAIN_SIZE, level_shapes=lambda b: [],
+            profile_runs=0, launches=(0, 0))
+        out["train"][name]["size"] = list(S17_TRAIN_SIZE)
+        log(f"[19 train] {name}: {time.perf_counter() - t0:.1f} s")
         del model, tx
         torch.cuda.empty_cache()
     return out

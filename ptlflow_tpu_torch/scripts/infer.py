@@ -1,6 +1,9 @@
 """Inference of the PyTorch port on image pairs and folders of frames (the
 JAX package's ``infer.py``): writes flow files and colour visualizations,
-optionally warm-starting each pair from the last.
+and, where the model gives them, its occlusion and confidence maps as
+8-bit gray PNGs (``{stem}_occs.png``, ``{stem}_confs.png``, as the
+reference's ``infer.py`` writes them), optionally warm-starting each pair
+from the last.
 
     python -m ptlflow_tpu_torch.scripts.infer --model raft \\
         --input_path frame1.png frame2.png [--device cpu]
@@ -31,6 +34,8 @@ from ptlflow_tpu_torch.utils.flow_viz import flow_to_rgb
 from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
 
 IMG_EXTS = (".png", ".ppm", ".pgm", ".pnm")
+# per-pixel maps in [0, 1] that a model may give beside its flows
+MAP_KEYS = ("occs", "confs")
 VID_EXTS = (".mp4", ".avi", ".mkv", ".webm")
 
 
@@ -117,8 +122,9 @@ def infer(args) -> List[Path]:
         preds = model(inputs)
         if args.warm_start and "flow_small" in preds:
             prev_preds = {"flow_small": preds["flow_small"]}
-        flows = io_adapter.unscale({"flows": preds["flows"]})["flows"]
-        flow_hwc = flows[0, 0].permute(1, 2, 0).float().cpu().numpy()
+        out = io_adapter.unscale({k: preds[k] for k in ("flows",) + MAP_KEYS
+                                  if k in preds})
+        flow_hwc = out["flows"][0, 0].permute(1, 2, 0).float().cpu().numpy()
 
         stem = f"{prev_name}"
         if not args.not_write_outputs:
@@ -128,6 +134,11 @@ def infer(args) -> List[Path]:
             if args.write_viz:
                 image_io.imwrite(out_dir / f"{stem}_viz.png",
                                  flow_to_rgb(flow_hwc)[..., ::-1])
+            for key in MAP_KEYS:
+                if key in out:
+                    gray = (out[key][0, 0, 0].float().clamp(0, 1) * 255)
+                    image_io.imwrite(out_dir / f"{stem}_{key}.png",
+                                     gray.round().to(torch.uint8).cpu().numpy())
         if args.gt_path is not None:
             gt = flow_io.flow_read(args.gt_path)
             valid = ~np.isnan(gt[..., 0])

@@ -72,32 +72,33 @@ def test_port_sources_import_no_jax():
     assert not offenders
 
 
-PORTED = ["ccmr", "ccmr_p", "craft", "csflow", "dip", "dpflow", "fastflownet",
-          "flow1d", "flow_anything", "flowformer", "flowformer_pp", "flownet2",
-          "flownetc", "flownetcs", "flownetcss", "flownets", "flownetsd",
-          "flowseek_m", "flowseek_t", "gma", "gmflownet", "gmflownet_mix",
-          "irr_pwc", "irr_pwcnet", "irr_pwcnet_irr", "lcv_raft",
-          "lcv_raft_small", "liteflownet", "liteflownet2",
-          "liteflownet2_pseudoreg", "liteflownet3", "liteflownet3_pseudoreg",
-          "liteflownet3s", "liteflownet3s_pseudoreg", "llaflow",
-          "llaflow_raft", "matchflow", "matchflow_raft", "memflow",
+PORTED = ["ccmr", "ccmr_p", "craft", "csflow", "dicl", "dip", "dpflow",
+          "fastflownet", "flow1d", "flow_anything", "flowformer",
+          "flowformer_pp", "flownet2", "flownetc", "flownetcs", "flownetcss",
+          "flownets", "flownetsd", "flowseek_m", "flowseek_t", "gma",
+          "gmflownet", "gmflownet_mix", "hd3", "hd3_ctxt", "irr_pwc",
+          "irr_pwcnet", "irr_pwcnet_irr", "lcv_raft", "lcv_raft_small",
+          "liteflownet", "liteflownet2", "liteflownet2_pseudoreg",
+          "liteflownet3", "liteflownet3_pseudoreg", "liteflownet3s",
+          "liteflownet3s_pseudoreg", "llaflow", "llaflow_raft", "maskflownet",
+          "maskflownet_s", "matchflow", "matchflow_raft", "memflow",
           "memflow_t", "memfof", "ms_raft_p", "neuflow2", "pwcnet",
           "pwcnet_nodc", "raft", "raft_small", "rapidflow", "rapidflow_it1",
           "rapidflow_it2", "rapidflow_it3", "rapidflow_it6", "recover_cx",
           "recover_mn", "recover_rn", "rpknet", "scopeflow", "scv4", "scv8",
           "sea_raft", "sea_raft_l", "sea_raft_m", "sea_raft_s",
-          "separableflow", "skflow", "splatflow", "streamflow",
+          "separableflow", "skflow", "splatflow", "starflow", "streamflow",
           "videoflow_bof", "videoflow_mof", "waft_dav2_a1", "waft_dav2_a2",
           "waft_dinov3_a2", "waft_twins_a2"]
 
 
 def test_registry():
-    """The 73 ported names; the trainable ones are the JAX package's
+    """The 79 ported names; the trainable ones are the JAX package's
     trainable names among them (``flowformer_pp``, the VideoFlows,
     ``memfof``, ``splatflow``, ``flow_anything``, the FlowSeeks, the
-    CCMRs and the seven LiteFlowNets are not trainable)."""
+    CCMRs, the seven LiteFlowNets and STaRFlow are not trainable)."""
     assert ptlflow_tpu_torch.get_model_names() == PORTED
-    assert len(PORTED) == 73
+    assert len(PORTED) == 79
     assert ptlflow_tpu_torch.get_trainable_model_names() == [
         n for n in PORTED if n in ptlflow_tpu.get_trainable_model_names()]
     for name in ("flowformer_pp", "videoflow_bof", "videoflow_mof",
@@ -105,7 +106,7 @@ def test_registry():
                  "flowseek_m", "ccmr", "ccmr_p", "liteflownet", "liteflownet2",
                  "liteflownet2_pseudoreg", "liteflownet3",
                  "liteflownet3_pseudoreg", "liteflownet3s",
-                 "liteflownet3s_pseudoreg"):
+                 "liteflownet3s_pseudoreg", "starflow"):
         assert name not in ptlflow_tpu_torch.get_trainable_model_names()
     for name in ("craft", "neuflow2", "streamflow", "csflow", "llaflow",
                  "llaflow_raft", "recover_cx", "recover_mn", "recover_rn",
@@ -115,11 +116,12 @@ def test_registry():
                  "scv8", "ms_raft_p", "separableflow", "pwcnet",
                  "pwcnet_nodc", "irr_pwc", "scopeflow", "irr_pwcnet",
                  "irr_pwcnet_irr", "flownets", "flownetc", "flownetsd",
-                 "flownetcs", "flownetcss", "flownet2", "fastflownet"):
+                 "flownetcs", "flownetcss", "flownet2", "fastflownet",
+                 "maskflownet", "maskflownet_s", "hd3", "hd3_ctxt", "dicl"):
         assert name in ptlflow_tpu_torch.get_trainable_model_names()
     assert ptlflow_tpu_torch.get_ptlflow_trained_model_names() == [
         "ccmr", "ccmr_p", "dpflow", "flowseek_m", "flowseek_t", "gma",
-        "ms_raft_p", "pwcnet", "raft", "raft_small", "rapidflow",
+        "hd3", "hd3_ctxt", "ms_raft_p", "pwcnet", "raft", "raft_small", "rapidflow",
         "rapidflow_it1", "rapidflow_it2", "rapidflow_it3", "rapidflow_it6",
         "rpknet", "waft_dav2_a1", "waft_dav2_a2", "waft_twins_a2"]
     assert ptlflow_tpu_torch.get_model_reference("raft").__name__ == "raft"
@@ -263,7 +265,13 @@ def test_checkpoint_round_trip(tmp_path):
     ("liteflownet3_pseudoreg", "pseudo_subpixel.up_flow.weight"),
     ("liteflownet3s", "deformation_nets.0.up_conf.weight"),
     ("liteflownet3s_pseudoreg", "regularization_nets.0.conf_pred.0.weight"),
-    ("fastflownet", "decoder6.conv4.0.weight")])
+    ("fastflownet", "decoder6.conv4.0.weight"),
+    ("maskflownet_s", "deform2.weight"),
+    ("maskflownet", "MaskFlownet_S.deform5.bias"),
+    ("hd3", "encoder.dla_up.ida_0.up_1.weight"),
+    ("hd3_ctxt", "Decoder_4.dc_conv_5.1.running_var"),
+    ("starflow", "conv_1x1_time.0.weight"),
+    ("dicl", "dap_layer2.dap_layer.conv.weight")])
 def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     """A Lightning-style .ckpt in the reference's layout, converted from a
     JAX tree (MemFlow nests its net under ``network.``, LCV-RAFT stores
@@ -284,8 +292,12 @@ def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     LiteFlowNet's grouped transposed convolutions (the 49-group correlation
     upsampler, the 2-group flow upsamplers), separable distance heads,
     pseudo stages, deformation and modulation networks and confidence
-    heads, FastFlowNet's grouped decoder convolutions), loads into
-    ``get_model`` strictly, every tensor equal.  WAFT's Twins checkpoint
+    heads, FastFlowNet's grouped decoder convolutions, MaskFlowNet's
+    deformable convolutions (torchvision's (O, C, k, k) weights) and its
+    first stage nested under ``MaskFlownet_S.``, HD3's channel-wise IDA
+    upsamplers and context head, STaRFlow's temporal 1x1 convolution,
+    DICL's displacement-aware projections), loads into ``get_model``
+    strictly, every tensor equal.  WAFT's Twins checkpoint
     also holds timm's classifier ``norm.``/``head.``, which the load
     drops."""
     import jax
@@ -321,7 +333,16 @@ def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     ("flownetcss", "flownets_2.predict_flow2.bias", {}),
     ("flownet2", "flownetfusion.inter_conv0.0.weight", {}),
     ("flownet2", "flownets_d.inter_conv2.1.running_var",
-     {"batch_norm": True})])
+     {"batch_norm": True}),
+    ("maskflownet_s", "conv2f.0.weight", {}),
+    ("maskflownet", "MaskFlownet_S.pred_mask3.weight", {}),
+    ("hd3", "encoder.base.level4.tree2.root.bn.running_mean", {}),
+    ("hd3_ctxt", "Decoder_4.cls.weight", {}),
+    ("hd3", "encoder.block_5.conv3.weight", {"encoder": "vgg"}),
+    ("hd3", "Decoder_3.mapping.block1.shortcut.0.weight",
+     {"decoder": "resnet"}),
+    ("starflow", "refine_occ.convs.6.0.weight", {}),
+    ("dicl", "matching4.match.4.conv.weight", {})])
 def test_reference_layout_loads_at_registered_width(name, extra, args):
     """FlowNet's six names at their registered width (39 to 163 million
     parameters), and ``flownet2`` with ``batch_norm`` (every convolution
@@ -331,7 +352,10 @@ def test_reference_layout_loads_at_registered_width(name, extra, args):
     ``flownetc.``, ``flownets_1.``, ``flownets_2.``, ``flownets_d.`` and
     ``flownetfusion.`` of the reference's checkpoints among them) and loads
     strictly into the model built on the meta device.  The parity tests
-    hold the values; a checkpoint file of ``flownet2`` would be 650 MB."""
+    hold the values; a checkpoint file of ``flownet2`` would be 650 MB.
+    Likewise the slice of MaskFlowNet (+S), HD3 (+ctxt, and the
+    ``encoder="vgg"`` and ``decoder="resnet"`` options that no registered
+    name sets), STaRFlow and DICL."""
     import jax
 
     from ptlflow_tpu_torch.utils.convert import state_dict_from_jax
