@@ -145,7 +145,7 @@ Phases, each of which must pass, else the script exits non-zero:
     ``flowseek_m``), DIP, Flow1D and GMFlowNet (+``_mix``), the ViT
     backbones, the basis fields, PatchMatch, the 1-D lookup and POLA:
     serve 3 consecutive pairs of one sequence at 436x1024 through each
-    (``flow1d`` also at 1080x1920; ``flow1d`` and ``gmflownet(_mix)``
+    (``flow1d`` also 2 pairs at 1080x1920; ``flow1d`` and ``gmflownet(_mix)``
     warm-started from the last's ``flow_small``), counting 4 lookups a
     forward for FlowSeek, 32 for GMFlowNet and none elsewhere; time and
     profile each fp32 forward with its peak memory and the ``validate
@@ -226,6 +226,21 @@ Phases, each of which must pass, else the script exits non-zero:
     float32, in float64 too, and in float32 against the CPU's own float32
     spread); and train the five trainable names
     at 384x512 at the first batch of (10, 8, 6, 4, 2) that fits.
+20. VCN (``vcn``, ``vcn_small``), NeuFlow and GMFlow (``gmflow``,
+    ``gmflow_refine``), on VCN's separable 4-D volume filtering and
+    truncated soft winner-take-all and GMFlow's global and split-window
+    matching (plain PyTorch; no lookup launch): serve 3 cold pairs at
+    436x1024 through each, time and profile each fp32 forward with the
+    CUDA-event ms and calls of VCN's volume, filtering and
+    winner-take-all, NeuFlow's attentions and local correlation and
+    GMFlow's transformer, matchings and propagation; time VCN's 4-D
+    convolutions as ``Conv3d`` on a view and as folded 2-D convolutions;
+    the flows of all five at 256x320 on the card against the CPU, VCN's
+    argmax indices replayed on the CPU; one train step at 128x192 of
+    ``vcn_small``, ``neuflow`` and ``gmflow_refine`` on both (VCN's and
+    GMFlow's, ill-conditioned in float32, in float64 too and in float32
+    against the CPU's own spread); and train the five at 384x512 at the
+    first batch of (10, 8, 6, 4, 2) that fits.
 
 Phases 10-16 time their forwards but profile none (the script's time went
 to phase 17; PERF.md section 5 keeps the profiles of their last profiled
@@ -245,8 +260,9 @@ card's name and power limit (after ``{"harness": ...}``,
 ``{"train_cli": ...}``, ``{"flowformer": ...}``, ``{"sk_family": ...}``,
 ``{"recurrent_pyramid": ...}``, ``{"video_and_attention": ...}``,
 ``{"volume_and_backbone": ...}``, ``{"slice13": ...}``,
-``{"slice14": ...}``, ``{"slice15": ...}``, ``{"slice16": ...}`` and
-``{"slice17": ...}``, phases 8-19's numbers), and
+``{"slice14": ...}``, ``{"slice15": ...}``, ``{"slice16": ...}``,
+``{"slice17": ...}`` and ``{"slice18": ...}``, phases 8-20's numbers),
+and
 the last
 line ``{"ok": true, "device": {...}}``.  With no card it prints no result
 and exits 2.
@@ -589,6 +605,33 @@ ATOL_OCCS = 1e-4
 # adds by atomics on the card)
 RTOL_DEFORM = 1e-4
 
+# Phase 20: VCN (+small), NeuFlow, GMFlow (+refine): the separable 4-D
+# volume filtering, the truncated soft winner-take-all, the global and
+# split-window matching (plain PyTorch; no lookup launch)
+S18_NAMES = ("vcn", "vcn_small", "neuflow", "gmflow", "gmflow_refine")
+# one train step card against CPU: (model, batch seed, size, ill
+# conditioned).  VCN's and GMFlow's float32 steps are ill-conditioned:
+# VCN's whole gradient lies 1e-4 to 3.2e-3 from float64 over 10 batch
+# seeds (tests/test_torch_vcn.py; each BatchNorm of the 2x3 (1/64) level
+# sums few terms that cancel), ``vcn_small``'s here 1.4e-3 (the port on
+# the CPU); ``gmflow_refine``'s moves by 9e-4 to 2.2e-3 when the images
+# move by one rounding (batch seeds 5 and 6, the CPU), its softmax
+# matchings near an argmax.  NeuFlow's moves by 8e-6
+S18_STEP_CHECK = (("vcn_small", 6, (128, 192), True),
+                  ("neuflow", 6, (128, 192), False),
+                  ("gmflow_refine", 6, (128, 192), True))
+S18_TRAIN_SIZE = (384, 512)
+S18_TRAIN_BATCHES = (10, 8, 6, 4, 2)
+S18_TRAIN_STEPS = 2
+# the heads damped as the CPU tests damp them (the refiner's by 0.003:
+# 134 px mean flows at 256x320 from the init's weights at 0.01)
+S18_DAMPED = {"vcn": (("dc*_conv7",), 0.1),
+              "neuflow": (("refine_s8.conv4",), 0.003),
+              "gmflow": (("backbone.conv2",), 0.1)}
+# VCN's finest (1/4) volume at 1024x448: the displacement convolution's
+# channels, displacements and pixels (``vcn_conv_forms``)
+VCN_LEVEL2 = (12, 9, 112, 256)
+
 # softsplat_average, card against CPU: float32 sums of a few terms whose
 # atomics add in no fixed order on the card
 ATOL_SPLAT = 1e-5
@@ -612,13 +655,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def timed_ms(torch, fn, reps: int, flush=None) -> float:
+def timed_ms(torch, fn, reps: int, flush=None, warm: bool = True) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, by CUDA events around
-    each call.  ``flush`` runs before every call and sweeps the 50 MB L2
-    (see ``flushes``), so the call finds its inputs cold, as in the model,
-    where the update block runs between two lookups; the sweep also keeps
-    the card busy while the host enqueues the call."""
-    fn()
+    each call, after one untimed call where ``warm`` (a caller that has
+    just run ``fn`` passes False).  ``flush`` runs before every call and
+    sweeps the 50 MB L2 (see ``flushes``), so the call finds its inputs
+    cold, as in the model, where the update block runs between two
+    lookups; the sweep also keeps the card busy while the host enqueues
+    the call."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
@@ -1305,6 +1351,30 @@ def condition_slice17(torch, name: str, model, images=None) -> None:
         calibrate_norms(torch, model, images)
 
 
+def s18_family(name: str) -> str:
+    """The key of phase 20's per-family tables (``S18_DAMPED``)."""
+    return {"vcn_small": "vcn", "gmflow_refine": "gmflow"}.get(name, name)
+
+
+def condition_slice18(torch, name: str, model) -> None:
+    """Phase 20's models, conditioned as their CPU tests are
+    (``S18_DAMPED``): VCN's hypotheses' fusion heads (a softmax picks
+    among the hypotheses) and GMFlow's backbone output (random features
+    make the softmax matching near an argmax) by 0.1, NeuFlow's 1/8
+    refiner output by 0.003 (random refiners step by thousands of
+    pixels)."""
+    import fnmatch
+
+    patterns, factor = S18_DAMPED[s18_family(name)]
+    with torch.no_grad():
+        for mod_name, mod in model.named_modules():
+            if (any(fnmatch.fnmatch(mod_name, p) for p in patterns)
+                    and getattr(mod, "weight", None) is not None):
+                mod.weight.mul_(factor)
+                if mod.bias is not None:
+                    mod.bias.mul_(factor)
+
+
 class ArgmaxReplay:
     """Every ``torch.argmax`` of a run on the card recorded, then given to
     a run on the CPU, as ``TopkReplay`` does for ``torch.topk``: HD3's
@@ -1421,7 +1491,10 @@ def parity_weights(torch, name: str, model, images) -> None:
     ``condition_slice14``.  SeparableFlow, PWC-Net, IRR:
     ``condition_slice15``.  FlowNet, LiteFlowNet, FastFlowNet:
     ``condition_slice16``.  MaskFlowNet, HD3, STaRFlow, DICL:
-    ``condition_slice17``."""
+    ``condition_slice17``.  VCN, NeuFlow, GMFlow: ``condition_slice18``."""
+    if name in S18_NAMES:
+        condition_slice18(torch, name, model)
+        return
     if name in S17_NAMES:
         condition_slice17(torch, name, model, images)
         return
@@ -2533,6 +2606,18 @@ def main(argv=None) -> int:
     for name, path in s17_train_paths.items():
         launches[path] = sum(s17["train"][name]["lookup"])
 
+    # ---------------------------------------------------------------- 20
+    t20 = time.perf_counter()
+    s18 = slice18_phase(torch, dev, tag)
+    log(f"[20] {time.perf_counter() - t20:.1f} s")
+    launches.update(s18["launches"])
+    s18_train_paths = {
+        name: (f"{name} train, {S18_TRAIN_STEPS} steps at {rec['size'][1]}x"
+               f"{rec['size'][0]}, batch {rec['batch']}")
+        for name, rec in s18["train"].items()}
+    for name, path in s18_train_paths.items():
+        launches[path] = sum(s18["train"][name]["lookup"])
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -2627,7 +2712,12 @@ def main(argv=None) -> int:
                s17["train_step_card_vs_cpu"][name]["launches"][1]
                for name, _, size, _ in S17_STEP_CHECK},
             **{path: sum(s17["train"][name]["lookup_backward"])
-               for name, path in s17_train_paths.items()}),
+               for name, path in s17_train_paths.items()},
+            **{f"{name} train step at {size[1]}x{size[0]}":
+               s18["train_step_card_vs_cpu"][name]["launches"][1]
+               for name, _, size, _ in S18_STEP_CHECK},
+            **{path: sum(s18["train"][name]["lookup_backward"])
+               for name, path in s18_train_paths.items()}),
         "max_abs_err": bwd_err,
         "max_abs_grad": bwd_gmax,
         "ms": bwd_ms,
@@ -2681,6 +2771,7 @@ def main(argv=None) -> int:
                                 if k != "kernels"}, "card": tag}))
     log(json.dumps({"slice16": s16, "card": tag}))
     log(json.dumps({"slice17": s17, "card": tag}))
+    log(json.dumps({"slice18": s18, "card": tag}))
     log(tag)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -3330,8 +3421,10 @@ def time_forward(torch, model, images, label: str, tag: str, depth: str,
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    times = sorted(timed_ms(torch, lambda: model({"images": images}), reps)
-                   for _ in range(runs))
+    # no untimed call before each run: the warm-ups, or in phases 10-20
+    # the served pairs just before, have run the model on these inputs
+    times = sorted(timed_ms(torch, lambda: model({"images": images}), reps,
+                            warm=False) for _ in range(runs))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     median = times[len(times) // 2]
@@ -3479,15 +3572,15 @@ def flowformer_phase(torch, dev, tag: str, ff_lookup) -> dict:
         raise AssertionError(f"tiled forward: {n} lookup launches, expected "
                              f"{4 * FF_DEPTH}")
     out["launches"][f"flowformer tiled, train_size {FF_TRAIN_SIZE}"] = n
-    runs = sorted(timed_ms(torch, lambda: model({"images": calib}), 3)
-                  for _ in range(3))
+    runs = sorted(timed_ms(torch, lambda: model({"images": calib}), 1,
+                           warm=False) for _ in range(3))
     out["forward_ms"]["flowformer tiled"] = runs[1]
     out["forward_runs_ms"]["flowformer tiled"] = runs
     mean = res["flows"].mean(dim=(0, 1, 3, 4)).tolist()
     log(f"[10 tiled] [{tag}] flowformer at {W}x{H}, train_size "
         f"{FF_TRAIN_SIZE}: 4 tiles, {n} lookup launches, flows finite, mean "
         f"({mean[0]:.3f}, {mean[1]:.3f}) px; {runs[1]:.3f} ms/forward "
-        f"(median of 3 runs of 3: {', '.join(f'{r:.3f}' for r in runs)} ms)")
+        f"(median of 3 runs of 1: {', '.join(f'{r:.3f}' for r in runs)} ms)")
     del model, res
 
     # card against CPU at 256x320, the registered depth
@@ -4292,7 +4385,10 @@ def slice13_phase(torch, dev, tag: str) -> dict:
     model, built = None, None
     for name, depth, warm, (h, w) in S13_SERVE:
         t0 = time.perf_counter()
-        frames = smooth_frames(151, h, w, 4, shift=(2, 1))
+        big = (h, w) == (SPRING_H, SPRING_W)
+        # 2 pairs at 1080p (the second warm-started), as phase 12 serves
+        # dpflow there: ~8 s a forward
+        frames = smooth_frames(151, h, w, 3 if big else 4, shift=(2, 1))
         if name != built:  # flow1d serves two sizes on one model
             del model
             torch.cuda.empty_cache()
@@ -4305,11 +4401,10 @@ def slice13_phase(torch, dev, tag: str) -> dict:
             built = name
         n, x = serve_sequence(torch, name, model, frames, depth,
                               (1, 1, 2, h, w), 15, window=2, warm=warm)
-        key = f"{name} serve at {w}x{h}, 3 pairs"
+        key = f"{name} serve at {w}x{h}, {len(frames) - 1} pairs"
         out["launches"][key] = n
-        if n != 3 * depth:
+        if n != (len(frames) - 1) * depth:
             raise AssertionError(f"{key}: {n} lookup launches")
-        big = (h, w) == (SPRING_H, SPRING_W)
         label = f"{name} fp32" + (" 1080p" if big else "")
         # flow1d at 1080p: ~8 s a forward, a million kernel launches (cuDNN
         # picks an FFT convolution of GEMVs for the motion encoder's 7x7
@@ -5410,6 +5505,199 @@ def slice17_phase(torch, dev, tag: str) -> dict:
             profile_runs=0, launches=(0, 0))
         out["train"][name]["size"] = list(S17_TRAIN_SIZE)
         log(f"[19 train] {name}: {time.perf_counter() - t0:.1f} s")
+        del model, tx
+        torch.cuda.empty_cache()
+    return out
+
+
+def vcn_conv_forms(torch, dev, tag: str) -> dict:
+    """VCN's two 4-D convolutions at its finest volume (``VCN_LEVEL2``:
+    12 channels, 9 x 9 displacements, 112 x 256 pixels at 1024x448), fp32,
+    in the two forms the port could take: the reference's ``Conv3d`` on a
+    view of the (B, C, U, V, H, W) volume (the port's), and the JAX
+    package's 2-D convolution with the complementary axes folded into the
+    batch, with the transposes around it.  Each pair agrees (max |d| over
+    max |v| within RTOL_DEFORM) and is timed by CUDA events."""
+    import torch.nn.functional as F
+
+    c, u, h, w = VCN_LEVEL2
+    g = torch.Generator(device="cpu").manual_seed(20)
+    x = torch.randn(1, c, u, u, h, w, generator=g).to(dev)
+    wuv = (0.1 * torch.randn(c, c, 3, 3, 1, generator=g)).to(dev)
+    whw = (0.1 * torch.randn(c, c, 1, 3, 3, generator=g)).to(dev)
+
+    def uv3d():
+        return F.conv3d(x.view(1, c, u, u, h * w), wuv,
+                        padding=(1, 1, 0)).view(1, c, u, u, h, w)
+
+    def uv2d():
+        y = x.permute(0, 4, 5, 1, 2, 3).reshape(h * w, c, u, u)
+        y = F.conv2d(y, wuv[..., 0], padding=1)
+        return y.view(1, h, w, c, u, u).permute(0, 3, 4, 5, 1,
+                                                2).contiguous()
+
+    def hw3d():
+        return F.conv3d(x.view(1, c, u * u, h, w), whw,
+                        padding=(0, 1, 1)).view(1, c, u, u, h, w)
+
+    def hw2d():
+        y = x.view(c, u * u, h, w).transpose(0, 1).contiguous()
+        y = F.conv2d(y, whw[:, :, 0], padding=1)
+        return y.transpose(0, 1).contiguous().view(1, c, u, u, h, w)
+
+    out = {}
+    for axes, conv3d, folded in (("uv", uv3d, uv2d), ("hw", hw3d, hw2d)):
+        with torch.no_grad():
+            a, b = conv3d(), folded()
+            err = ((a - b).abs().max() / a.abs().max()).item()
+            ms3 = timed_ms(torch, conv3d, 20)
+            ms2 = timed_ms(torch, folded, 20)
+        if not err <= RTOL_DEFORM:
+            raise AssertionError(f"VCN {axes} convolution forms differ by "
+                                 f"{err}")
+        out[axes] = {"conv3d_ms": ms3, "folded_conv2d_ms": ms2,
+                     "max_rel_err": err}
+        log(f"[20 forward] [{tag}] VCN {axes} convolution at {c}x{u}x{u}x"
+            f"{h}x{w}: Conv3d on a view {ms3:.3f} ms, folded 2-D with its "
+            f"transposes {ms2:.3f} ms; max |d| / max |v| {err:.2e}")
+    return out
+
+
+def slice18_phase(torch, dev, tag: str) -> dict:
+    """Phase 20: VCN (``vcn``, ``vcn_small``), NeuFlow and GMFlow
+    (``gmflow``, ``gmflow_refine``) on the card, fp32, TF32 off,
+    conditioned as their CPU tests are (``condition_slice18``).  Serves 3
+    cold pairs of one sequence at 436x1024 through each, counting no
+    lookup launch and checking no autograd graph; times and profiles each
+    fp32 forward once, with the device ms and calls of VCN's volume
+    (``corrf``), filtering (each level's butterfly and separable
+    convolution) and winner-take-all, NeuFlow's attentions and local
+    correlation, GMFlow's transformer, matchings and propagation by CUDA
+    events around their calls (``timed_spans``); times VCN's 4-D
+    convolutions in the port's form and the folded one
+    (``vcn_conv_forms``); holds every name's flows at 256x320 card against
+    CPU, VCN's argmax indices replayed on the CPU (``ArgmaxReplay``); one
+    train step a family card against CPU (S18_STEP_CHECK); and trains the
+    five at 384x512 at the first of S18_TRAIN_BATCHES that fits
+    (unprofiled)."""
+    import importlib
+
+    import ptlflow_tpu_torch
+    from ptlflow_tpu_torch.parallel import train as ttrain
+    from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+
+    vcn = importlib.import_module("ptlflow_tpu_torch.models.vcn.vcn")
+    nfl = importlib.import_module("ptlflow_tpu_torch.models.neuflow.neuflow")
+    gmf = importlib.import_module("ptlflow_tpu_torch.models.gmflow.gmflow")
+    gmt = importlib.import_module(
+        "ptlflow_tpu_torch.models.gmflow.transformer")
+    spans_of = {
+        "vcn": [(vcn, "corrf", "corrf"),
+                (vcn.VCNSmall, "filter_volume", "butterfly4D + sepConv4d"),
+                (vcn.flow_reg, "forward", "flow_reg")],
+        "neuflow": [(nfl, "sdpa", "attention"),
+                    (nfl, "local_correlation", "local_correlation")],
+        "gmflow": [(gmt.FeatureTransformer, "forward", "transformer"),
+                   (gmf, "global_correlation_softmax", "global_matching"),
+                   (gmf, "local_correlation_softmax", "local_matching"),
+                   (gmt.FeatureFlowAttention, "forward", "propagation")]}
+    out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
+           "peak_gib": {}, "forward_gib": {}, "launches": {}, "spans": {},
+           "card_vs_cpu_px": {}}
+    # cuDNN's convolutions (3-D ones among them), cuBLAS GEMMs, softmaxes,
+    # the trilinear (U, V) resizes, the samplers (the warps), reductions
+    # (the argmaxes among them), elementwise kernels, concatenations
+    named = {"cuDNN fprop": "fprop", "GEMMs": "gemm", "softmax": "softmax",
+             "trilinear resize": "upsample_trilinear", "samplers": "sampler",
+             "reductions": "reduce", "elementwise": "elementwise_kernel",
+             "cat": "CatArrayBatchedCopy"}
+    frames = smooth_frames(201, H, W, 4, shift=(2, 1))
+    for name in S18_NAMES:
+        t0 = time.perf_counter()
+        model = ptlflow_tpu_torch.get_model(name)
+        parity_weights(torch, name, model, None)
+        n, x = serve_sequence(torch, name, model, frames, 0, (1, 1, 2, H, W),
+                              20, warm=False)
+        key = f"{name} serve at {W}x{H}, 3 pairs"
+        out["launches"][key] = n
+        if n != 0:
+            raise AssertionError(f"{key}: {n} lookup launches")
+        label = f"{name} fp32"
+        with timed_spans(torch, spans_of[s18_family(name)]) as recs:
+            time_forward(torch, model, x["images"], label, tag,
+                         "no lookups", 20, out, named, reps=FWD_REPS,
+                         warmups=FWD_WARMUPS, profiled=True,
+                         ranges=list(recs), profile_runs=1)
+            rec = span_ms(torch, model, x["images"], recs)
+        fwd_ms = out["forward_ms"][label]
+        prof = out["profile"][label]
+        for span, r in rec.items():
+            r["launches"] = prof["range_launches"][span]
+            r["kernel_ms"] = prof["range_kernel_ms"][span]
+            log(f"[20 forward] [{tag}] {label}: {span} {r['calls']} calls, "
+                f"{r['ms']:.3f} ms stream-elapsed by CUDA events around them "
+                f"(the card's idle gaps included; {r['ms'] / fwd_ms:.1%} of "
+                f"the {fwd_ms:.3f} ms forward), {fmt_ms(r['kernel_ms'])} of "
+                f"kernel time under them by the profiler, {r['launches']} "
+                f"kernel launches")
+        out["spans"][label] = rec
+        log(f"[20 serve] {name}: {time.perf_counter() - t0:.1f} s with its "
+            f"timing")
+        del model, x
+        torch.cuda.empty_cache()
+    out["vcn_conv_forms"] = vcn_conv_forms(torch, dev, tag)
+
+    # card against CPU at 256x320, VCN's argmax indices replayed
+    t0 = time.perf_counter()
+    out["argmax_differing"] = {}
+    seq = smooth_frames(7, 256, 320, 2, shift=(3, 2))
+    x = IOAdapter(device="cpu").prepare_inputs(seq)
+    xd = x["images"].to(dev)
+    for name in S18_NAMES:
+        gpu_model, cpu_model = card_and_cpu(torch, name, xd, served=False)
+        replay = ArgmaxReplay(torch)
+        with replay.record():
+            got = gpu_model({"images": xd})["flows"].cpu()
+        with replay.replay():
+            want = cpu_model(x)["flows"]
+        if replay.elements:
+            out["argmax_differing"][name] = [replay.differ, replay.elements]
+        diff = (got - want).abs().max().item()
+        out["card_vs_cpu_px"][name] = diff
+        log(f"[20 card vs cpu] {name} 256x320: max |dflow| {diff:.3e} px "
+            f"(flow up to {want.abs().max().item():.2f} px, tolerance "
+            f"{ATOL_CARD_CPU_PX} px)"
+            + (f"; {replay.differ} of {replay.elements} argmax indices "
+               f"differ on the CPU's own, the CPU took the card's"
+               if replay.elements else ""))
+        if not diff <= ATOL_CARD_CPU_PX:
+            raise AssertionError(f"{name}: card and CPU differ by {diff} px")
+        del cpu_model, gpu_model
+    log(f"[20 card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # one train step a family card against CPU
+    t0 = time.perf_counter()
+    out["train_step_card_vs_cpu"] = {
+        name: train_step_card_vs_cpu(
+            torch, name, dev, {}, (0, 0), batch_seed=seed, size=size,
+            ill_conditioned=ill)
+        for name, seed, size, ill in S18_STEP_CHECK}
+    log(f"[20 train step card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # training at the first batch that fits
+    out["train"] = {}
+    for name in S18_NAMES:
+        t0 = time.perf_counter()
+        model = ptlflow_tpu_torch.get_model(name)
+        parity_weights(torch, name, model, None)
+        tx = ttrain.make_optimizer(lr=1e-4, wdecay=4e-4, total_steps=120000,
+                                   pct_start=0.05, grad_clip=1.0)
+        out["train"][name] = train_at_largest_batch(
+            torch, dev, tag, model, tx, S18_TRAIN_BATCHES, S18_TRAIN_STEPS,
+            0, name, 20, size=S18_TRAIN_SIZE, level_shapes=lambda b: [],
+            profile_runs=0, launches=(0, 0))
+        out["train"][name]["size"] = list(S18_TRAIN_SIZE)
+        log(f"[20 train] {name}: {time.perf_counter() - t0:.1f} s")
         del model, tx
         torch.cuda.empty_cache()
     return out

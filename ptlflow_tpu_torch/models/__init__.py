@@ -2,8 +2,8 @@
 
 from . import (ccmr, craft, csflow, dicl, dip, dpflow,  # noqa: F401
                fastflownet, flow1d, flowformer, flowformerplusplus, flownet,
-               flowseek, gma, gmflownet, hd3, irr, lcv, liteflownet, llaflow,
-               maskflownet, matchflow, memflow, memfof, ms_raft_plus,
-               neuflow2, pwcnet, raft, rapidflow, recover, rpknet, scv,
-               sea_raft, separableflow, skflow, splatflow, starflow,
-               streamflow, videoflow, waft)
+               flowseek, gma, gmflow, gmflownet, hd3, irr, lcv, liteflownet,
+               llaflow, maskflownet, matchflow, memflow, memfof,
+               ms_raft_plus, neuflow, neuflow2, pwcnet, raft, rapidflow,
+               recover, rpknet, scv, sea_raft, separableflow, skflow,
+               splatflow, starflow, streamflow, vcn, videoflow, waft)

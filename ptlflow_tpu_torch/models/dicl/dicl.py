@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...nn import BatchNorm2d, CastConv2d, CastConvTranspose2d
+from ...nn import (BatchNorm2d, CastConv2d, CastConvTranspose2d,
+                   at_least_float32)
 from ...ops.correlation import coords_grid
 from ...ops.grid_sample import bilinear_coverage, bilinear_sampler, interpolate
 from ...utils.registry import register_model, trainable
@@ -136,12 +137,6 @@ class DICLMatch(nn.Module):
 
     def forward(self, x):
         return self.match(x)
-
-
-def at_least_float32(x: torch.Tensor) -> torch.Tensor:
-    """``x`` in float32, or as it is where its type is wider (a float64
-    step stays float64 through the soft argmax)."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def flow_entropy(cost: torch.Tensor) -> torch.Tensor:

@@ -1,1 +1,1 @@
-"""GMFlow: only the sine position embedding is ported so far."""
+from .gmflow import GMFlow, GMFlowWithRefinement, gmflow, gmflow_refine  # noqa: F401

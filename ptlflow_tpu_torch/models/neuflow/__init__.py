@@ -1,1 +1,1 @@
-"""NeuFlow's pieces that NeuFlow v2 reuses; the model is not ported yet."""
+from .neuflow import NeuFlow, neuflow  # noqa: F401

@@ -27,10 +27,10 @@ from torch import nn
 from ...nn import BatchNorm2d, CastConv2d
 from ...ops.correlation import CorrBlock, coords_grid
 from ...ops.grid_sample import interpolate
-from ...ops.upsample import convex_upsample
 from ...utils.registry import register_model, trainable
 from ..base import BaseModel
-from ..neuflow.neuflow import TransformerLayer, lrelu, sdpa
+from ..neuflow.neuflow import (SequenceLoss, TransformerLayer, UpSample,
+                               lrelu, sdpa)
 
 
 class ConvBlock2(nn.Module):
@@ -152,49 +152,6 @@ class Refine(nn.Module):
         return torch.clamp(x[:, 2:], -4.0, 4.0), x[:, :2]
 
 
-class UpSample(nn.Module):
-    """Convex upsampling of the flow by ``upsample_factor`` with a mask
-    from the flow and ``feature``."""
-
-    def __init__(self, feature_dim: int, upsample_factor: int):
-        super().__init__()
-        self.upsample_factor = upsample_factor
-        self.conv1 = CastConv2d(2 + feature_dim, 256, 3, 1, 1)
-        self.conv2 = CastConv2d(256, 512, 3, 1, 1)
-        self.conv3 = CastConv2d(512, upsample_factor ** 2 * 9, 1, 1, 0)
-
-    def forward(self, feature: torch.Tensor,
-                flow: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.conv1(torch.cat([flow, feature], dim=1)))
-        mask = self.conv3(torch.relu(self.conv2(x)))
-        return convex_upsample(flow, mask, self.upsample_factor)
-
-
-class SequenceLoss2:
-    """The sum over predictions i of w_i times the mean, over B, both
-    channels, H and W, of valid * |pred_i - gt|, with the fixed weights
-    w = (0.2, 1, 1, ...); valid means ``valids >= 0.5`` and |gt| <
-    ``max_flow``.  ``gamma`` is accepted and unused, as in the JAX
-    package."""
-
-    def __init__(self, gamma: float, max_flow: float):
-        self.max_flow = max_flow
-
-    def __call__(self, outputs: Dict[str, torch.Tensor],
-                 inputs: Dict[str, Any]) -> torch.Tensor:
-        flow_preds = outputs["flow_preds"]  # (n, B, 2, H, W)
-        flow_gt = inputs["flows"][:, 0]
-        valid = inputs["valids"][:, 0]
-        mag = torch.sqrt(torch.sum(flow_gt ** 2, dim=1, keepdim=True))
-        valid = ((valid >= 0.5) & (mag < self.max_flow)).to(flow_gt.dtype)
-        total = 0.0
-        for i in range(flow_preds.shape[0]):
-            w = 0.2 if i == 0 else 1.0
-            total = total + w * torch.mean(
-                valid * (flow_preds[i] - flow_gt).abs())
-        return total
-
-
 class NeuFlow2(BaseModel):
     pretrained_checkpoints = {
         "mixed": "https://github.com/hmorimitsu/ptlflow/releases/download/weights1/neuflow2-mixed-acac1a70.ckpt",
@@ -209,7 +166,7 @@ class NeuFlow2(BaseModel):
                  feature_dim_s1: int = 128, iters_s16: int = 1,
                  iters_s8: int = 8, **kwargs):
         super().__init__(output_stride=16,
-                         loss_fn=SequenceLoss2(gamma, max_flow), **kwargs)
+                         loss_fn=SequenceLoss(gamma, max_flow), **kwargs)
         self.context_dim_s16 = context_dim_s16
         self.iter_context_dim_s16 = iter_context_dim_s16
         self.context_dim_s8 = context_dim_s8

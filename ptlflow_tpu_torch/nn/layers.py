@@ -19,6 +19,13 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is where its type is wider: the float32
+    islands of a reduced-precision forward (softmaxes, norms' statistics)
+    stay float64 in a float64 one."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class CastConv2d(nn.Conv2d):
     """``nn.Conv2d`` that runs in its input's dtype: weight and bias are
     cast to ``x.dtype`` on every call, as every convolution of the JAX
@@ -87,22 +94,23 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 class InstanceNorm2d(nn.InstanceNorm2d):
     """``nn.InstanceNorm2d`` (affine=False, no running stats), with the
-    statistics taken in float32 whatever the input's dtype."""
+    statistics taken in at least float32 whatever the input's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float()).to(x.dtype)
+        return super().forward(at_least_float32(x)).to(x.dtype)
 
 
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` over the last dimension(s), with the statistics and
-    the affine transform taken in float32 whatever the input's dtype, and
-    the result rounded once to the input's dtype, as the JAX package's
-    ``LayerNorm`` does."""
+    the affine transform taken in at least float32 whatever the input's
+    dtype, and the result rounded once to the input's dtype, as the JAX
+    package's ``LayerNorm`` does."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        weight = None if self.weight is None else self.weight.float()
-        bias = None if self.bias is None else self.bias.float()
-        return F.layer_norm(x.float(), self.normalized_shape, weight, bias,
+        xf = at_least_float32(x)
+        weight = None if self.weight is None else self.weight.to(xf.dtype)
+        bias = None if self.bias is None else self.bias.to(xf.dtype)
+        return F.layer_norm(xf, self.normalized_shape, weight, bias,
                             self.eps).to(x.dtype)
 
 

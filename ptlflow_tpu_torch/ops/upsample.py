@@ -8,19 +8,21 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..nn import at_least_float32
 from .grid_sample import interpolate
 
 
 def _convex_weights(mask: torch.Tensor, factor: int) -> torch.Tensor:
-    """(B, 9*f*f, h, w) logits -> (B, 1, 9, f, f, h, w) float32 weights,
-    softmaxed over the 9 neighbours."""
+    """(B, 9*f*f, h, w) logits -> (B, 1, 9, f, f, h, w) weights in at
+    least float32, softmaxed over the 9 neighbours."""
     b, _, h, w = mask.shape
     f = factor
-    return torch.softmax(mask.float().view(b, 1, 9, f, f, h, w), dim=2)
+    return torch.softmax(at_least_float32(mask).view(b, 1, 9, f, f, h, w),
+                         dim=2)
 
 
 def _convex_combine(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """(B, C, h, w) float32 -> (B, C, f*h, f*w): each output pixel the
+    """(B, C, h, w) -> (B, C, f*h, f*w): each output pixel the
     ``m``-weighted sum of its coarse pixel's 3x3 zero-padded neighbours."""
     b, c, h, w = x.shape
     f = m.shape[3]
@@ -36,10 +38,10 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor,
 
     mask: (B, 9*f*f, h, w) logits; channel k*f*f + i*f + j weighs 3x3
     neighbour k (row-major dy, dx) for subpixel (i, j).  Computed in
-    float32; returns the flow's dtype.
+    at least float32; returns the flow's dtype.
     """
     m = _convex_weights(mask, factor)
-    return _convex_combine(factor * flow.float(), m).to(flow.dtype)
+    return _convex_combine(factor * at_least_float32(flow), m).to(flow.dtype)
 
 
 def convex_upsample_data(flow: torch.Tensor, info: torch.Tensor,
@@ -47,11 +49,12 @@ def convex_upsample_data(flow: torch.Tensor, info: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SEA-RAFT's upsampling: the flow (B, 2, h, w), scaled by ``factor``,
     and an info map (B, C, h, w), unscaled, each convex-upsampled with the
-    one softmaxed ``mask`` of :func:`convex_upsample`.  Computed in float32;
-    returns each input's dtype."""
+    one softmaxed ``mask`` of :func:`convex_upsample`.  Computed in at
+    least float32; returns each input's dtype."""
     m = _convex_weights(mask, factor)
-    return (_convex_combine(factor * flow.float(), m).to(flow.dtype),
-            _convex_combine(info.float(), m).to(info.dtype))
+    return (_convex_combine(factor * at_least_float32(flow), m).to(
+        flow.dtype), _convex_combine(at_least_float32(info), m).to(
+            info.dtype))
 
 
 def upflow(flow: torch.Tensor, factor: int = 8,

@@ -71,7 +71,11 @@ MODULE_RENAMES = {"conv": "block.0", "norm": "block.2", "fc1": "block.3",
 
 # Leaves that the JAX package stores flattened: the ConvNeXt block's
 # ``layer_scale``, (dim,) there and (dim, 1, 1) in the reference
-# (ptlflow_tpu/models/recover/backbones.py:143-152).
+# (ptlflow_tpu/models/recover/backbones.py:143-152).  VCN's 4-D
+# convolutions are also reshaped: 2-D convolutions there, ``Conv3d`` with
+# a (k, k, 1) or (1, k, k) kernel in the reference
+# (ptlflow_tpu/models/vcn/conv4d.py:66-78), so a 4-D weight whose target
+# is 5-D takes the target's shape.
 LEAF_RESHAPES = ("layer_scale",)
 
 
@@ -98,12 +102,16 @@ def state_dict_from_jax(params: Dict[str, Any],
 
 def _reshape_to_target(out: Dict[str, torch.Tensor],
                        target: torch.nn.Module) -> None:
-    """Each of the ``LEAF_RESHAPES`` to the target's shape, where it holds
-    as many elements in another shape."""
+    """Each of the ``LEAF_RESHAPES``, and each 4-D convolution weight of a
+    5-D target, to the target's shape, where it holds as many elements in
+    another shape."""
     for name, t in target.state_dict().items():
         have = out.get(name)
-        if (name.rsplit(".", 1)[-1] in LEAF_RESHAPES and have is not None
-                and have.shape != t.shape and have.numel() == t.numel()):
+        if have is None or have.shape == t.shape or have.numel() != t.numel():
+            continue
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in LEAF_RESHAPES or (leaf == "weight" and have.dim() == 4
+                                     and t.dim() == 5):
             out[name] = have.reshape(t.shape)
 
 

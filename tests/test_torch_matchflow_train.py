@@ -44,13 +44,18 @@ def assert_whole_step_matches(tmodel, batch, jmodel, iters):
     b, _, _, h, w = batch["images"].shape
     assert jpreds.shape == (iters, b, h, w, 2)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    start = {k: v.clone() for k, v in tmodel.state_dict().items()}
-    with torch.no_grad():
-        preds = tmodel(tbatch, training=True)["flow_preds"]
-    np.testing.assert_allclose(nhwc(preds), np.asarray(jpreds), atol=5e-3)
-    tmodel.load_state_dict(start, strict=True)  # the BN statistics moved
     tparams, _ = tnn.split_trainable(tmodel)
-    loss, grads = ttrain.loss_and_grads(tmodel, tparams, tbatch)
+    # the predictions are the step's own forward's, caught by a hook: the
+    # training forward runs once
+    seen = []
+    hook = tmodel.register_forward_hook(lambda m, a, out: seen.append(out))
+    try:
+        loss, grads = ttrain.loss_and_grads(tmodel, tparams, tbatch)
+    finally:
+        hook.remove()
+    assert len(seen) == 1
+    np.testing.assert_allclose(nhwc(seen[0]["flow_preds"]),
+                               np.asarray(jpreds), atol=5e-3)
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
     want = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jgrads),
                                tmodel)

@@ -59,18 +59,22 @@ def assert_list_step_matches(tmodel, batch, jmodel, keys=("flow_preds",),
     in for ``jax_step``.  Returns the port's gradients by name."""
     (jloss, (jstate, jpreds)), jgrads = (step or jax_step)(jmodel, batch)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    start = {k: v.clone() for k, v in tmodel.state_dict().items()}
-    with torch.no_grad():
-        out = tmodel(tbatch, training=True)
-    tmodel.load_state_dict(start, strict=True)  # the BN statistics moved
+    tparams, _ = tnn.split_trainable(tmodel)
+    # the predictions are the step's own forward's, caught by a hook: the
+    # training forward runs once
+    seen = []
+    hook = tmodel.register_forward_hook(lambda m, a, out: seen.append(out))
+    try:
+        loss, grads = ttrain.loss_and_grads(tmodel, tparams, tbatch)
+    finally:
+        hook.remove()
+    assert len(seen) == 1
     for key in keys:
-        got, want = flat_preds(out[key]), jax.tree_util.tree_leaves(
+        got, want = flat_preds(seen[0][key]), jax.tree_util.tree_leaves(
             jpreds if key == "flow_preds" else None)
         assert len(got) == len(want) > 0
         for g, w in zip(got, want):
             np.testing.assert_allclose(nhwc(g), np.asarray(w), atol=5e-3)
-    tparams, _ = tnn.split_trainable(tmodel)
-    loss, grads = ttrain.loss_and_grads(tmodel, tparams, tbatch)
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
     want = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jgrads),
                                tmodel)
