@@ -241,6 +241,23 @@ Phases, each of which must pass, else the script exits non-zero:
     GMFlow's, ill-conditioned in float32, in float64 too and in float32
     against the CPU's own spread); and train the five at 384x512 at the
     first batch of (10, 8, 6, 4, 2) that fits.
+21. UniMatch (``unimatch``, ``unimatch_sc2``, ``unimatch_sc2_ref6``) and
+    GMFlow+ (``gmflow_p``, ``_sc2``, ``_sc2_ref6``: the same classes), on
+    GMFlow's matching and the regression refinement, which builds the
+    all-pairs volume of the 1/4 features once (Q = 28,672 on 112x256 at
+    1024x448) and looks it up once a step: serve 3 cold pairs at 436x1024
+    through ``unimatch_sc2_ref6``, counting 6 lookups a forward, and one
+    through ``unimatch`` and ``unimatch_sc2``, counting none; time each
+    fp32 forward with the CUDA-event ms and calls of the transformer, the
+    matchings, the propagation, the refinement's volume, lookups and
+    update blocks, and profile ``unimatch_sc2_ref6``'s once; both kernels
+    against their plain versions (the lookup in fp32 and bf16, the
+    backward bit for bit twice) and timed on that level; the flows of the
+    three at 256x320 on the card against the CPU, each ``gmflow_p*`` name
+    equal on the card to its twin on the same weights; one train step of
+    ``unimatch_sc2_ref6`` at 64x96 on both (in float32 against the CPU's
+    own spread and in float64, 6 lookups and 6 backward lookups); and
+    train it at 384x512 at the first batch of (8, 6, 4, 2) that fits.
 
 Phases 10-16 time their forwards but profile none (the script's time went
 to phase 17; PERF.md section 5 keeps the profiles of their last profiled
@@ -261,7 +278,8 @@ card's name and power limit (after ``{"harness": ...}``,
 ``{"recurrent_pyramid": ...}``, ``{"video_and_attention": ...}``,
 ``{"volume_and_backbone": ...}``, ``{"slice13": ...}``,
 ``{"slice14": ...}``, ``{"slice15": ...}``, ``{"slice16": ...}``,
-``{"slice17": ...}`` and ``{"slice18": ...}``, phases 8-20's numbers),
+``{"slice17": ...}``, ``{"slice18": ...}`` and ``{"slice19": ...}``,
+phases 8-21's numbers),
 and
 the last
 line ``{"ok": true, "device": {...}}``.  With no card it prints no result
@@ -348,10 +366,12 @@ CLI_STEPS, CLI_RESUMED, CLI_VAL_EVERY, CLI_CUDA_STEPS = 6, 8, 3, 4
 # Phase 10: FlowFormer and FlowFormer++ at their registered depth, the
 # tiled forward at FlowFormer's Sintel crop, and training on 368x496 crops
 # (TRAIN_H x TRAIN_W) at the first of FF_TRAIN_BATCHES that fits the card
+# (batch 12 runs out of 80 GB on the H100, in every run so far: the search
+# starts at 8)
 FF_SERVE = ("flowformer", "flowformer_pp")
 FF_DEPTH = 32
 FF_TRAIN_SIZE = (432, 960)
-FF_TRAIN_BATCHES = (12, 8, 6, 4, 2)
+FF_TRAIN_BATCHES = (8, 6, 4, 2)
 FF_TRAIN_STEPS = 2
 # Phase 11: SKFlow, LCV-RAFT (+small) and MemFlow (+T) at their registered
 # depths; MemFlow trained on 368x496 crops at the first of SK_TRAIN_BATCHES
@@ -384,8 +404,9 @@ VA_SERVE = (("craft", 32, 2), ("neuflow2", 9, 2), ("videoflow_bof", 64, 3),
 # training at 368x496: craft at iters=12 (as raft-train1-chairs.yaml sets
 # RAFT; the repo has no CRAFT train config) and streamflow at its 15 on 4
 # frames, each at the first of its VA_TRAIN_BATCHES that fits (streamflow's
-# batches 8 and 6 ran out of 80 GB, as 4 did, on the H100); neuflow2 at 8
-VA_TRAIN_BATCHES = {"craft": (8, 6, 4, 2), "streamflow": (4, 3, 2)}
+# batches 8, 6 and 4 run out of 80 GB on the H100, 4 in every run so far:
+# its search starts at 3); neuflow2 at 8
+VA_TRAIN_BATCHES = {"craft": (8, 6, 4, 2), "streamflow": (3, 2)}
 VA_TRAIN_STEPS = 2
 # the lookups of videoflow_mof (5 frames) and streamflow (4) at 1024x436:
 # Q = 3 x 55 x 128 on the 4 levels 55x128 ... 6x16
@@ -483,11 +504,12 @@ S14_DENSE = (("ms_raft_p", 25), ("ccmr", 33), ("ccmr_p", 38))
 S14_STEP_CHECK = (("matchflow", {"iters": 2}, (2, 2), 6),
                   ("scv4", {"iters": 2}, (0, 0), 6),
                   ("ms_raft_p", {"iters": (2, 2, 2, 2)}, (0, 0), 6))
-# timed training at 368x496 at the first batch that fits, at the registered
-# depths: matchflow's 32 iterations (32 lookups and 32 backward lookups a
-# step), ms_raft_p's (4, 6, 5, 10) on AltCorrBlock (none)
-S14_TRAIN = (("matchflow", (32, 32)), ("ms_raft_p", (0, 0)))
-S14_TRAIN_BATCHES = (8, 6, 4, 2, 1)
+# timed training at 368x496 at the first of its batches that fits, at the
+# registered depths: matchflow's 32 iterations (32 lookups and 32 backward
+# lookups a step), ms_raft_p's (4, 6, 5, 10) on AltCorrBlock (none; batch 8
+# runs out of 80 GB in every run so far, so its search starts at 6)
+S14_TRAIN = (("matchflow", (32, 32), (8, 6, 4, 2, 1)),
+             ("ms_raft_p", (0, 0), (6, 4, 2, 1)))
 S14_TRAIN_STEPS = 2
 # Phase 17: SeparableFlow, PWC-Net (+nodc) and IRR (irr_pwc, scopeflow,
 # irr_pwcnet, irr_pwcnet_irr) at their registered depths: (model, lookup
@@ -498,6 +520,10 @@ S15_SERVE = (("separableflow", 32), ("pwcnet", 0), ("pwcnet_nodc", 0),
              ("irr_pwcnet_irr", 0))
 S15_NAMES = tuple(name for name, _ in S15_SERVE)
 S15_BF16 = ("separableflow", "pwcnet")
+# profiled once each: PWC-Net only.  SeparableFlow's 24k-launch and IRR's
+# 11k-launch profiles take ~20 and ~8 s each to digest, and their readings
+# held across four runs (PERF.md section 5)
+S15_PROFILED = ("pwcnet",)
 # one train step card against CPU: (model, args, the forward kernel's and
 # the backward's launches, the batch seed, the size).  PWC's and IRR's
 # losses pool the ground truth by whole ratios, so their size is a multiple
@@ -631,6 +657,24 @@ S18_DAMPED = {"vcn": (("dc*_conv7",), 0.1),
 # VCN's finest (1/4) volume at 1024x448: the displacement convolution's
 # channels, displacements and pixels (``vcn_conv_forms``)
 VCN_LEVEL2 = (12, 9, 112, 256)
+
+# Phase 21: UniMatch and GMFlow+ (model, lookups a forward at 1024x436)
+S19_SERVE = (("unimatch", 0), ("unimatch_sc2", 0), ("unimatch_sc2_ref6", 6))
+S19_NAMES = tuple(name for name, _ in S19_SERVE)
+# each GMFlow+ name and its UniMatch twin (the same class)
+S19_TWINS = {"gmflow_p": "unimatch", "gmflow_p_sc2": "unimatch_sc2",
+             "gmflow_p_sc2_ref6": "unimatch_sc2_ref6"}
+# the card-against-CPU train step: ill-conditioned in float32 as
+# gmflow_refine's is (tests/test_torch_unimatch_train.py), so held in
+# float64 too; 64x96 puts 2x3 windows at 1/4
+S19_STEP_SEED, S19_STEP_SIZE = 6, (64, 96)
+# batch 10 fits alone (70.3 GiB peak) but not after phases 1-20 on an
+# 80 GB H100: the search starts at 8
+S19_TRAIN_SIZE = (384, 512)
+S19_TRAIN_BATCHES = (8, 6, 4, 2)
+S19_TRAIN_STEPS = 2
+# the refinement's 1/4 level at 1024x448: batch, channels, height, width
+UNIMATCH_LEVEL = (1, 128, 112, 256)
 
 # softsplat_average, card against CPU: float32 sums of a few terms whose
 # atomics add in no fixed order on the card
@@ -1375,6 +1419,19 @@ def condition_slice18(torch, name: str, model) -> None:
                     mod.bias.mul_(factor)
 
 
+def condition_slice19(torch, name: str, model) -> None:
+    """Phase 21's models, conditioned as their CPU tests are
+    (``tests/test_torch_unimatch.py``): GMFlow's backbone output by 0.1
+    (``condition_slice18``) and the refinement's flow head by 0.1 (random
+    refinement steps otherwise add tens of pixels each)."""
+    condition_slice18(torch, "gmflow", model)
+    if hasattr(model, "refine"):
+        conv = model.refine.flow_head.conv2
+        with torch.no_grad():
+            conv.weight.mul_(0.1)
+            conv.bias.mul_(0.1)
+
+
 class ArgmaxReplay:
     """Every ``torch.argmax`` of a run on the card recorded, then given to
     a run on the CPU, as ``TopkReplay`` does for ``torch.topk``: HD3's
@@ -1491,7 +1548,11 @@ def parity_weights(torch, name: str, model, images) -> None:
     ``condition_slice14``.  SeparableFlow, PWC-Net, IRR:
     ``condition_slice15``.  FlowNet, LiteFlowNet, FastFlowNet:
     ``condition_slice16``.  MaskFlowNet, HD3, STaRFlow, DICL:
-    ``condition_slice17``.  VCN, NeuFlow, GMFlow: ``condition_slice18``."""
+    ``condition_slice17``.  VCN, NeuFlow, GMFlow: ``condition_slice18``.
+    UniMatch, GMFlow+: ``condition_slice19``."""
+    if name in S19_NAMES or name in S19_TWINS:
+        condition_slice19(torch, name, model)
+        return
     if name in S18_NAMES:
         condition_slice18(torch, name, model)
         return
@@ -1848,6 +1909,7 @@ def main(argv=None) -> int:
                         help="other corr_lookup.cu sources to time in turns "
                              "with the repo's kernel")
     args = parser.parse_args(argv)
+    t_main = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1882,6 +1944,7 @@ def main(argv=None) -> int:
                 log(f"    {line.strip()}")
 
     # ---------------------------------------------------------------- 2
+    t_phase = time.perf_counter()
     g = torch.Generator(device="cpu").manual_seed(0)
 
     def randn(*shape):
@@ -2077,7 +2140,9 @@ def main(argv=None) -> int:
         f"{RTOL_BF16}); bitwise repeatable")
     coords_grad_check(torch, dev, case_inputs)
 
+    log(f"[2] {time.perf_counter() - t_phase:.1f} s")
     # ---------------------------------------------------------------- 3
+    t_phase = time.perf_counter()
     pairs = [smooth_pair(seed, H, W, shift=(2 + seed, 1 + seed))
              for seed in range(3)]
     launches = {}
@@ -2143,7 +2208,9 @@ def main(argv=None) -> int:
             f"mean |warm - cold| {moved:.4f} px")
         del model, first, warm, cold
 
+    log(f"[3] {time.perf_counter() - t_phase:.1f} s")
     # ---------------------------------------------------------------- 4
+    t_phase = time.perf_counter()
     for name in ("raft", "raft_small", "sea_raft_m", "gma"):
         iters = dict(SERVE)[name]
         cpu_model = ptlflow_tpu_torch.get_model(name, args={"iters": iters},
@@ -2169,7 +2236,9 @@ def main(argv=None) -> int:
     step_check = {name: train_step_card_vs_cpu(torch, name, dev)
                   for name in ("raft", "sea_raft_s")}
 
+    log(f"[4] {time.perf_counter() - t_phase:.1f} s")
     # ---------------------------------------------------------------- 5
+    t_phase = time.perf_counter()
     pyr, coords = main_inputs[torch.float32]
     radius = 4
     sweeps = flushes(torch, dev)
@@ -2315,7 +2384,9 @@ def main(argv=None) -> int:
                                              ms)
         del model
 
+    log(f"[5] {time.perf_counter() - t_phase:.1f} s")
     # ---------------------------------------------------------------- 6
+    t_phase = time.perf_counter()
     model = ptlflow_tpu_torch.get_model(
         "raft", args={"iters": ITERS, "corr_levels": 4, "corr_radius": 4,
                       "gamma": 0.8, "max_flow": 400.0})
@@ -2387,7 +2458,9 @@ def main(argv=None) -> int:
     profile_batch = batches[-1]
     del params_before, batches
 
+    log(f"[6] {time.perf_counter() - t_phase:.1f} s")
     # ---------------------------------------------------------------- 7
+    t_phase = time.perf_counter()
     pyr_t, coords_t, grad_t = train_inputs
     shapes_t = [tuple(p.shape[1:]) for p in pyr_t]
 
@@ -2462,7 +2535,9 @@ def main(argv=None) -> int:
         f"algorithms), against {step_ms:.3f} ms")
     del model, state, step, pyr_t, coords_t, grad_t, train_inputs
 
+    log(f"[7] {time.perf_counter() - t_phase:.1f} s")
     # ---------------------------------------------------------------- 8
+    t_phase = time.perf_counter()
     work = os.path.join(HERE, "_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -2473,7 +2548,9 @@ def main(argv=None) -> int:
     launches["raft validate, 10 pairs"] = harness["validate_launches"]
     launches["raft infer, 3 frames"] = harness["infer_launches"]
 
+    log(f"[8] {time.perf_counter() - t_phase:.1f} s")
     # ---------------------------------------------------------------- 9
+    t_phase = time.perf_counter()
     work = os.path.join(HERE, "_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -2489,7 +2566,9 @@ def main(argv=None) -> int:
                     for i in (0, 1)]
     launches[cli_path] = cli_launches[0]
 
+    log(f"[9] {time.perf_counter() - t_phase:.1f} s")
     # ---------------------------------------------------------------- 10
+    t_phase = time.perf_counter()
     ff = flowformer_phase(torch, dev, tag, main_inputs["flowformer"])
     launches.update(ff["launches"])
     ff_bwd_launches = {
@@ -2501,6 +2580,7 @@ def main(argv=None) -> int:
              f"{TRAIN_H}, batch {ff['train']['batch']}"] = sum(
                  ff["train"]["lookup"])
 
+    log(f"[10] {time.perf_counter() - t_phase:.1f} s")
     # ---------------------------------------------------------------- 11
     t11 = time.perf_counter()
     sk = sk_family_phase(torch, dev, tag)
@@ -2618,6 +2698,23 @@ def main(argv=None) -> int:
     for name, path in s18_train_paths.items():
         launches[path] = sum(s18["train"][name]["lookup"])
 
+    # ---------------------------------------------------------------- 21
+    t21 = time.perf_counter()
+    s19 = slice19_phase(torch, dev, tag)
+    log(f"[21] {time.perf_counter() - t21:.1f} s")
+    launches.update(s19["launches"])
+    s19_train_paths = {
+        name: (f"{name} train, {S19_TRAIN_STEPS} steps at {rec['size'][1]}x"
+               f"{rec['size'][0]}, batch {rec['batch']}")
+        for name, rec in s19["train"].items()}
+    for name, path in s19_train_paths.items():
+        launches[path] = sum(s19["train"][name]["lookup"])
+    s19_step_path = (f"unimatch_sc2_ref6 train step at {S19_STEP_SIZE[1]}x"
+                     f"{S19_STEP_SIZE[0]}")
+    launches[s19_step_path] = s19["train_step_card_vs_cpu"][
+        "unimatch_sc2_ref6"]["launches"][0]
+
+    log(f"[1-21] {time.perf_counter() - t_main:.1f} s")
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
@@ -2656,6 +2753,7 @@ def main(argv=None) -> int:
         "slice13_shapes": s13["kernels"]["corr_lookup"],
         "slice14_shapes": s14["kernels"]["corr_lookup"],
         "slice15_shapes": s15["kernels"]["corr_lookup"],
+        "slice19_shapes": s19["kernels"]["corr_lookup"],
         "invalid_profiler_readings": [
             r for r in INVALID_READINGS if r["kernel"] == "corr_lookup"],
     }, {
@@ -2717,7 +2815,11 @@ def main(argv=None) -> int:
                s18["train_step_card_vs_cpu"][name]["launches"][1]
                for name, _, size, _ in S18_STEP_CHECK},
             **{path: sum(s18["train"][name]["lookup_backward"])
-               for name, path in s18_train_paths.items()}),
+               for name, path in s18_train_paths.items()},
+            **{s19_step_path: s19["train_step_card_vs_cpu"][
+                "unimatch_sc2_ref6"]["launches"][1]},
+            **{path: sum(s19["train"][name]["lookup_backward"])
+               for name, path in s19_train_paths.items()}),
         "max_abs_err": bwd_err,
         "max_abs_grad": bwd_gmax,
         "ms": bwd_ms,
@@ -2737,6 +2839,7 @@ def main(argv=None) -> int:
         "slice13_shapes": s13["kernels"]["corr_lookup_backward"],
         "slice14_shapes": s14["kernels"]["corr_lookup_backward"],
         "slice15_shapes": s15["kernels"]["corr_lookup_backward"],
+        "slice19_shapes": s19["kernels"]["corr_lookup_backward"],
         "profiler_readings_raft_train_shape": bwd_readings,
         "invalid_profiler_readings": [
             r for r in INVALID_READINGS
@@ -2772,6 +2875,8 @@ def main(argv=None) -> int:
     log(json.dumps({"slice16": s16, "card": tag}))
     log(json.dumps({"slice17": s17, "card": tag}))
     log(json.dumps({"slice18": s18, "card": tag}))
+    log(json.dumps({"slice19": {k: v for k, v in s19.items()
+                                if k != "kernels"}, "card": tag}))
     log(tag)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -3777,7 +3882,8 @@ def sk_family_phase(torch, dev, tag: str) -> dict:
 
 
 def serve_sequence(torch, name: str, model, frames, depth: int, shape,
-                   phase: int, window: int = 2, warm: bool = True):
+                   phase: int, window: int = 2, warm: bool = True,
+                   timing=None):
     """The consecutive windows of ``window`` frames of ``frames`` (pairs,
     by default) through ``model`` via IOAdapter -> model -> unscale; with
     ``warm``, each warm-started from the last: RAPIDFlow from the previous
@@ -3785,7 +3891,10 @@ def serve_sequence(torch, name: str, model, frames, depth: int, shape,
     from its ``flow_small``.  Asserts each window's flows (and backward
     flows, where the model gives them) of ``shape`` finite, no autograd
     graph and ``depth`` lookup launches.  Returns the launches and the
-    last window's inputs."""
+    last window's inputs.  Where ``timing`` is a dict, the last window's
+    forward is timed by CUDA events around it and its peak memory read:
+    ``ms``, ``peak_gib`` and ``forward_gib`` (above what was allocated
+    before it), for the forwards too slow to run again (1080p)."""
     from ptlflow_tpu_torch.ops import correlation as corr
     from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
 
@@ -3798,8 +3907,22 @@ def serve_sequence(torch, name: str, model, frames, depth: int, shape,
         if prev is not None:
             x["prev_preds"] = {key: prev}
         before = corr.corr_lookup_kernel.launches
+        last = k == len(frames) - window
+        if timing is not None and last:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
         res = model(x)
+        if timing is not None and last:
+            end.record()
         torch.cuda.synchronize()
+        if timing is not None and last:
+            peak = torch.cuda.max_memory_allocated()
+            timing.update(ms=start.elapsed_time(end), peak_gib=peak / 2 ** 30,
+                          forward_gib=(peak - base) / 2 ** 30)
         n = corr.corr_lookup_kernel.launches - before
         out = adapter.unscale(res)
         check_flows(torch, name, out, shape)
@@ -3817,6 +3940,22 @@ def serve_sequence(torch, name: str, model, frames, depth: int, shape,
             f"({mean[0]:.3f}, {mean[1]:.3f}) px, {n} lookup launches")
         prev = res[key] if warm else None
     return corr.corr_lookup_kernel.launches, x
+
+
+def record_served_forward(out: dict, label: str, timing: dict, tag: str,
+                          depth: str, phase: int, shape) -> None:
+    """``serve_sequence``'s ``timing`` of a last served window, written
+    into ``out`` under ``label`` as ``time_forward`` writes a timed
+    forward (one run)."""
+    out["forward_ms"][label] = timing["ms"]
+    out["forward_runs_ms"][label] = [timing["ms"]]
+    out["peak_gib"][label] = timing["peak_gib"]
+    out["forward_gib"][label] = timing["forward_gib"]
+    log(f"[{phase} forward] [{tag}] {label}, {shape[1]}x{shape[0]}, {depth}: "
+        f"{timing['ms']:.3f} ms/forward (the last served window, "
+        f"warm-started, by CUDA events); peak {timing['peak_gib']:.2f} GiB "
+        f"allocated, {timing['forward_gib']:.2f} GiB above what was "
+        f"allocated before it")
 
 
 def level_inputs(torch, dev, seed: int, b: int, h: int, w: int, c: int):
@@ -3881,19 +4020,22 @@ def recurrent_pyramid_phase(torch, dev, tag: str) -> dict:
             del cast
             # Spring's size: 4 levels, stride 64
             spring = smooth_frames(52, SPRING_H, SPRING_W, 3, shift=(3, 2))
+            # ~4 s and ~5e5 launches a forward, ~2 min to sort under the
+            # profiler: the second served pair is the timed forward
+            # (4.1-4.5 s in every run so far), and the profile is of one
+            # update step at the 1/8 level (the lookup's output and the
+            # flow, random)
+            t1 = time.perf_counter()
+            timing = {}
             n, x = serve_sequence(torch, name, model, spring,
                                   SPRING_LOOKUPS,
-                                  (1, 1, 2, SPRING_H, SPRING_W), 12)
+                                  (1, 1, 2, SPRING_H, SPRING_W), 12,
+                                  timing=timing)
             out["launches"][f"{name} serve at {SPRING_W}x{SPRING_H}, 2 "
                             f"pairs warm-started"] = n
-            # ~4 s and ~5e5 launches a forward (PR 9), ~2 min to sort
-            # under the profiler: the served pairs are the warm-ups, one
-            # forward a timed run, and the profile is of one update step
-            # at the 1/8 level (the lookup's output and the flow, random)
-            t1 = time.perf_counter()
-            time_forward(torch, model, x["images"], f"{name} fp32 1080p",
-                         tag, f"{SPRING_LOOKUPS} lookups", 12, out,
-                         reps=1, warmups=0, profiled=False, runs=1)
+            record_served_forward(out, f"{name} fp32 1080p", timing, tag,
+                                  f"{SPRING_LOOKUPS} lookups", 12,
+                                  (SPRING_H, SPRING_W))
             g = torch.Generator().manual_seed(12)
             h8, w8 = -(-SPRING_H // 64) * 8, -(-SPRING_W // 64) * 8
             # net, inp (the registered 128 each), corr, flow
@@ -4399,23 +4541,27 @@ def slice13_phase(torch, dev, tag: str) -> dict:
             if name not in undamped:
                 damp_to_served_size(torch, name, model, calib)
             built = name
+        timing = {} if big else None
         n, x = serve_sequence(torch, name, model, frames, depth,
-                              (1, 1, 2, h, w), 15, window=2, warm=warm)
+                              (1, 1, 2, h, w), 15, window=2, warm=warm,
+                              timing=timing)
         key = f"{name} serve at {w}x{h}, {len(frames) - 1} pairs"
         out["launches"][key] = n
         if n != (len(frames) - 1) * depth:
             raise AssertionError(f"{key}: {n} lookup launches")
         label = f"{name} fp32" + (" 1080p" if big else "")
-        # flow1d at 1080p: ~8 s a forward, a million kernel launches (cuDNN
-        # picks an FFT convolution of GEMVs for the motion encoder's 7x7
-        # 2->128 conv), which the profiler cannot digest in the time
-        # budget: the served pairs are the warm-ups, one timed forward,
-        # and the profile is of one update step
-        time_forward(torch, model, x["images"], label, tag,
-                     f"{depth} lookups", 15, out,
-                     reps=1 if big else FWD_REPS,
-                     warmups=0 if big else FWD_WARMUPS,
-                     profiled=False, runs=1 if big else 3)
+        # flow1d at 1080p: ~8 s a forward (7.8-9.0 s in every run), a
+        # million kernel launches (cuDNN picks an FFT convolution of GEMVs
+        # for the motion encoder's 7x7 2->128 conv), which the profiler
+        # cannot digest in the time budget: the second served pair is the
+        # timed forward, and the profile is of one update step
+        if big:
+            record_served_forward(out, label, timing, tag,
+                                  f"{depth} lookups", 15, (h, w))
+        else:
+            time_forward(torch, model, x["images"], label, tag,
+                         f"{depth} lookups", 15, out, reps=FWD_REPS,
+                         warmups=FWD_WARMUPS, profiled=False)
         if big:
             # the profile of one update step at 1080p's 1/8 level (136x240;
             # the correlation windows and the state random), as phase 12
@@ -4603,7 +4749,7 @@ def slice14_phase(torch, dev, tag: str) -> dict:
     holds their flows to the AltCorrBlock defaults' at 256x320, and
     ``ccmr``'s at 436x1024 too; one train step at 128x160 card against
     CPU (S14_STEP_CHECK); trains S14_TRAIN at TRAIN_H x TRAIN_W at the
-    first of S14_TRAIN_BATCHES that fits (unprofiled); and both kernels
+    first of each one's batches that fits (unprofiled); and both kernels
     against their plain versions and timed at ``ccmr``'s CorrBlock pyramid
     at 436x1024 (its 1/4 scale, padded to 448x1024: Q = 28,672 on 112x256
     and 56x128)."""
@@ -4725,7 +4871,7 @@ def slice14_phase(torch, dev, tag: str) -> dict:
 
     # training at 368x496 at the first batch that fits
     out["train"] = {}
-    for name, launches in S14_TRAIN:
+    for name, launches, batches in S14_TRAIN:
         t0 = time.perf_counter()
         model = ptlflow_tpu_torch.get_model(name)
         batch = train_batch(torch, 16, 2, TRAIN_H, TRAIN_W, dev)
@@ -4734,7 +4880,7 @@ def slice14_phase(torch, dev, tag: str) -> dict:
         tx = ttrain.make_optimizer(lr=4e-4, wdecay=1e-4, total_steps=120000,
                                    pct_start=0.05, grad_clip=1.0)
         out["train"][name] = train_at_largest_batch(
-            torch, dev, tag, model, tx, S14_TRAIN_BATCHES, S14_TRAIN_STEPS,
+            torch, dev, tag, model, tx, batches, S14_TRAIN_STEPS,
             launches[0], name, 16, level_shapes=lambda b: [],
             profile_runs=0, launches=launches)
         log(f"[16 train] {name}: {time.perf_counter() - t0:.1f} s")
@@ -4875,12 +5021,13 @@ def slice15_phase(torch, dev, tag: str) -> dict:
     consecutive pairs of one sequence at 436x1024 through each, cold (none
     reads a previous prediction), counting 32 lookup launches a forward for
     SeparableFlow and none for the others, checking ``irr_pwc``'s and
-    ``scopeflow``'s backward flows and occlusions; times and profiles each
-    fp32 forward with its peak memory, with the device ms, calls and
-    launches of SeparableFlow's SGA and NLF recursions and of the PWC
-    family's ``local_correlation`` by CUDA events around their calls and
-    ``record_function`` ranges in the profile (``timed_spans``), and the
-    ``validate --bf16`` casts of S15_BF16;
+    ``scopeflow``'s backward flows and occlusions; times each fp32 forward
+    with its peak memory, with the device ms and calls of SeparableFlow's
+    SGA and NLF recursions and of the PWC family's ``local_correlation``
+    by CUDA events around their calls (``timed_spans``), profiles those of
+    S15_PROFILED (the launches and kernel ms under the spans'
+    ``record_function`` ranges too), and times the ``validate --bf16``
+    casts of S15_BF16;
     holds the card against the CPU at 256x320 for every name
     (SeparableFlow's NLF-filtered volume and initial flow too), and
     ``local_correlation`` with its gradients at LOCAL_CORR_CASES; one train
@@ -4954,21 +5101,23 @@ def slice15_phase(torch, dev, tag: str) -> dict:
             time_forward(torch, model, x["images"], label, tag,
                          f"{depth} lookups", 17, out, named,
                          reps=FWD_REPS, warmups=FWD_WARMUPS,
-                         ranges=list(recs), profile_runs=1)
+                         profiled=name in S15_PROFILED, ranges=list(recs),
+                         profile_runs=1)
             rec = span_ms(torch, model, x["images"], recs)
-        prof = out["profile"][label]
-        for span, r in rec.items():
-            r["launches"] = prof["range_launches"][span]
-            r["kernel_ms"] = prof["range_kernel_ms"][span]
+        prof = out["profile"].get(label)
         out["spans"][label] = rec
         fwd_ms = out["forward_ms"][label]
         for span, r in rec.items():
+            if prof is not None:
+                r["launches"] = prof["range_launches"][span]
+                r["kernel_ms"] = prof["range_kernel_ms"][span]
             log(f"[17 forward] [{tag}] {label}: {span} {r['calls']} calls, "
                 f"{r['ms']:.3f} ms stream-elapsed by CUDA events around them "
                 f"(the card's idle gaps included; {r['ms'] / fwd_ms:.1%} of "
-                f"the {fwd_ms:.3f} ms forward), {fmt_ms(r['kernel_ms'])} of "
-                f"kernel time under them by the profiler, {r['launches']} "
-                f"kernel launches")
+                f"the {fwd_ms:.3f} ms forward)"
+                + (f", {fmt_ms(r['kernel_ms'])} of kernel time under them by "
+                   f"the profiler, {r['launches']} kernel launches"
+                   if prof is not None else ""))
         if name in S15_BF16:
             cast = copy.deepcopy(model)
             if not cast_to_bf16(cast, name):
@@ -5700,6 +5849,190 @@ def slice18_phase(torch, dev, tag: str) -> dict:
         log(f"[20 train] {name}: {time.perf_counter() - t0:.1f} s")
         del model, tx
         torch.cuda.empty_cache()
+    return out
+
+
+def slice19_phase(torch, dev, tag: str) -> dict:
+    """Phase 21: UniMatch (``unimatch``, ``unimatch_sc2``,
+    ``unimatch_sc2_ref6``) and GMFlow+ (``gmflow_p*``, their twins'
+    classes) on the card, fp32, TF32 off, conditioned as their CPU tests
+    are (``condition_slice19``).  Serves 3 cold pairs of one sequence at
+    436x1024 through ``unimatch_sc2_ref6`` (6 lookup launches a forward)
+    and one through ``unimatch`` and ``unimatch_sc2`` (none), checking no
+    autograd graph; times each fp32 forward once with the device ms and
+    calls of the transformer, the matchings, the propagation and the
+    refinement's volume, lookups and update blocks by CUDA events around
+    their calls (``timed_spans``), and profiles ``unimatch_sc2_ref6``'s;
+    holds both kernels on the refinement's 1/4 level against their plain
+    versions (the lookup in fp32 and bf16, the backward bit for bit twice)
+    and times them there; holds the three architectures' flows at 256x320
+    card against CPU and each ``gmflow_p*`` name on the card to its twin on
+    the same weights, bit for bit; one ``unimatch_sc2_ref6`` train step
+    card against CPU at S19_STEP_SIZE (float32 and float64, 6 launches of
+    each kernel); and trains ``unimatch_sc2_ref6`` at 384x512 at the first
+    of S19_TRAIN_BATCHES that fits (unprofiled)."""
+    import importlib
+
+    import ptlflow_tpu_torch
+    from ptlflow_tpu_torch.ops import correlation as corr
+    from ptlflow_tpu_torch.parallel import train as ttrain
+    from ptlflow_tpu_torch.utils.io_adapter import IOAdapter
+
+    gmf = importlib.import_module("ptlflow_tpu_torch.models.gmflow.gmflow")
+    gmt = importlib.import_module(
+        "ptlflow_tpu_torch.models.gmflow.transformer")
+    um = importlib.import_module(
+        "ptlflow_tpu_torch.models.unimatch.unimatch")
+    spans = [(gmt.FeatureTransformer, "forward", "transformer"),
+             (gmf, "global_correlation_softmax", "global_matching"),
+             (gmf, "local_correlation_softmax", "local_matching"),
+             (gmt.FeatureFlowAttention, "forward", "propagation"),
+             (um, "build_corr_pyramid", "refinement volume"),
+             (corr._KernelLookup, "__call__", "lookups"),
+             (um.BasicUpdateBlock, "forward", "update blocks")]
+    out = {"forward_ms": {}, "forward_runs_ms": {}, "profile": {},
+           "peak_gib": {}, "forward_gib": {}, "launches": {}, "spans": {},
+           "card_vs_cpu_px": {}, "twins_equal": {}}
+    named = {"GEMMs": "gemm", "cuDNN fprop": "fprop", "softmax": "softmax",
+             "lookup": "corr_lookup", "elementwise": "elementwise_kernel",
+             "cat": "CatArrayBatchedCopy"}
+    frames = smooth_frames(211, H, W, 4, shift=(2, 1))
+    for name, depth in S19_SERVE:
+        t0 = time.perf_counter()
+        model = ptlflow_tpu_torch.get_model(name)
+        parity_weights(torch, name, model, None)
+        seq = frames if depth else frames[:2]
+        n, x = serve_sequence(torch, name, model, seq, depth,
+                              (1, 1, 2, H, W), 21, warm=False)
+        out["launches"][f"{name} serve at {W}x{H}, {len(seq) - 1} "
+                        f"pair(s)"] = n
+        label = f"{name} fp32"
+        profiled = depth > 0
+        with timed_spans(torch, spans) as recs:
+            time_forward(torch, model, x["images"], label, tag,
+                         f"{depth} lookups", 21, out, named, reps=FWD_REPS,
+                         warmups=FWD_WARMUPS, profiled=profiled,
+                         ranges=list(recs), profile_runs=1)
+            rec = span_ms(torch, model, x["images"], recs)
+        fwd_ms = out["forward_ms"][label]
+        prof = out["profile"].get(label)
+        for span, r in rec.items():
+            if prof is not None:
+                r["launches"] = prof["range_launches"][span]
+                r["kernel_ms"] = prof["range_kernel_ms"][span]
+            log(f"[21 forward] [{tag}] {label}: {span} {r['calls']} calls, "
+                f"{r['ms']:.3f} ms stream-elapsed by CUDA events around them "
+                f"(the card's idle gaps included; {r['ms'] / fwd_ms:.1%} of "
+                f"the {fwd_ms:.3f} ms forward)"
+                + (f", {fmt_ms(r['kernel_ms'])} of kernel time under them by "
+                   f"the profiler, {r['launches']} kernel launches"
+                   if prof is not None else ""))
+        if rec["lookups"]["calls"] != depth:
+            raise AssertionError(f"{label}: {rec['lookups']['calls']} "
+                                 f"lookup calls, expected {depth}")
+        out["spans"][label] = rec
+        log(f"[21 serve] {name}: {time.perf_counter() - t0:.1f} s with its "
+            f"timing")
+        del model, x
+        torch.cuda.empty_cache()
+
+    # both kernels on the refinement's 1/4 level at 1024x448
+    t0 = time.perf_counter()
+    flush = flushes(torch, dev)["dirty"]
+    b, c, h, w = UNIMATCH_LEVEL
+    levels, coords, grad = level_inputs(torch, dev, 21, b, h, w, c)
+    label = f"unimatch 1/4 Q={b * h * w}"
+    got = corr.corr_lookup_kernel(levels, coords, 4)
+    err = (got - corr.corr_pyramid_lookup_plain(levels, coords, 4)).abs(
+        ).max().item()
+    if not err <= ATOL_FP32:
+        raise AssertionError(f"{label}: lookup |err| {err}")
+    half = [lvl.to(torch.bfloat16) for lvl in levels]
+    got = corr.corr_lookup_kernel(half, coords, 4).float()
+    want = corr.corr_pyramid_lookup_plain(half, coords, 4).float()
+    torch.testing.assert_close(got, want, rtol=RTOL_BF16, atol=ATOL_BF16)
+    out["bf16_max_abs_err"] = (got - want).abs().max().item()
+    del half, got, want
+    out["kernels"] = {
+        "corr_lookup": {label: lookup_record(torch, levels, coords, 4, err,
+                                             flush)},
+        "corr_lookup_backward": {label: backward_record(
+            torch, levels, coords, grad, 4, flush, label)}}
+    for kname, recs in out["kernels"].items():
+        rec = recs[label]
+        log(f"[21 kernels] [{tag}] {kname} at {label}, levels "
+            f"{rec['levels']}, r=4, fp32, L2 flushed per launch: "
+            f"{rec['ms']:.4f} ms by CUDA events, "
+            f"{fmt_ms(rec['profiler_ms'])} device time by the profiler; "
+            f"plain {rec['plain_ms']:.4f} ms; library "
+            f"{rec['library_ms']:.4f} ms; bound {rec['bound_ms']:.5f} ms by "
+            f"{rec['bound_by']} ({rec['bound_bytes']} bytes), kernel at "
+            f"{rec['bound_ms'] / rec['ms']:.1%} of it")
+    log(f"[21 kernels] bf16 lookup max |err| {out['bf16_max_abs_err']:.3e} "
+        f"(rtol {RTOL_BF16}); {time.perf_counter() - t0:.1f} s")
+    del levels, coords, grad
+    torch.cuda.empty_cache()
+
+    # card against CPU at 256x320; the GMFlow+ twins on the card
+    t0 = time.perf_counter()
+    seq = smooth_frames(7, 256, 320, 2, shift=(3, 2))
+    x = IOAdapter(device="cpu").prepare_inputs(seq)
+    xd = x["images"].to(dev)
+    for twin, name in S19_TWINS.items():
+        gpu_model, cpu_model = card_and_cpu(torch, name, xd, served=False)
+        got = gpu_model({"images": xd})
+        want = cpu_model(x)
+        check_flows(torch, name, got, (1, 1, 2, 256, 320))
+        diff = max((got[k].cpu() - want[k]).abs().max().item()
+                   for k in ("flows", "flow_small"))
+        out["card_vs_cpu_px"][name] = diff
+        log(f"[21 card vs cpu] {name} 256x320: max |dflow| of flows and "
+            f"flow_small {diff:.3e} px (flow up to "
+            f"{want['flows'].abs().max().item():.2f} px, tolerance "
+            f"{ATOL_CARD_CPU_PX} px)")
+        if not diff <= ATOL_CARD_CPU_PX:
+            raise AssertionError(f"{name}: card and CPU differ by {diff} px")
+        other = ptlflow_tpu_torch.get_model(twin)
+        if type(other).__mro__[1] is not type(gpu_model).__mro__[1]:
+            raise AssertionError(f"{twin} is not {name}'s class")
+        other.load_state_dict(gpu_model.state_dict(), strict=True)
+        mine = other({"images": xd})
+        same = all(torch.equal(mine[k], got[k])
+                   for k in ("flows", "flow_small"))
+        out["twins_equal"][twin] = same
+        log(f"[21 twins] {twin} on {name}'s weights at 256x320: flows and "
+            f"flow_small equal bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"{twin} differs from {name}")
+        del cpu_model, gpu_model, other
+    log(f"[21 card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # one train step card against CPU
+    t0 = time.perf_counter()
+    out["train_step_card_vs_cpu"] = {
+        "unimatch_sc2_ref6": train_step_card_vs_cpu(
+            torch, "unimatch_sc2_ref6", dev, {}, (6, 6),
+            batch_seed=S19_STEP_SEED, size=S19_STEP_SIZE,
+            ill_conditioned=True)}
+    log(f"[21 train step card vs cpu] {time.perf_counter() - t0:.1f} s")
+
+    # training at the first batch that fits
+    t0 = time.perf_counter()
+    name = "unimatch_sc2_ref6"
+    model = ptlflow_tpu_torch.get_model(name)
+    parity_weights(torch, name, model, None)
+    tx = ttrain.make_optimizer(lr=1e-4, wdecay=4e-4, total_steps=120000,
+                               pct_start=0.05, grad_clip=1.0)
+    th, tw = S19_TRAIN_SIZE[0] // 4, S19_TRAIN_SIZE[1] // 4
+    out["train"] = {name: train_at_largest_batch(
+        torch, dev, tag, model, tx, S19_TRAIN_BATCHES, S19_TRAIN_STEPS, 6,
+        name, 21, size=S19_TRAIN_SIZE,
+        level_shapes=lambda bs: [(bs * th * tw, th, tw)], profile_runs=0,
+        launches=(6, 6))}
+    out["train"][name]["size"] = list(S19_TRAIN_SIZE)
+    log(f"[21 train] {name}: {time.perf_counter() - t0:.1f} s")
+    del model, tx
+    torch.cuda.empty_cache()
     return out
 
 

@@ -6,4 +6,5 @@ from . import (ccmr, craft, csflow, dicl, dip, dpflow,  # noqa: F401
                llaflow, maskflownet, matchflow, memflow, memfof,
                ms_raft_plus, neuflow, neuflow2, pwcnet, raft, rapidflow,
                recover, rpknet, scv, sea_raft, separableflow, skflow,
-               splatflow, starflow, streamflow, vcn, videoflow, waft)
+               splatflow, starflow, streamflow, unimatch, vcn, videoflow,
+               waft)

@@ -153,14 +153,33 @@ class GMFlow(BaseModel):
             inputs["images"], bgr_add=(-0.406, -0.456, -0.485),
             bgr_mult=(1 / 0.225, 1 / 0.224, 1 / 0.229), bgr_to_rgb=True,
             resize_mode="pad", pad_mode="replicate", pad_two_side=True)
+        flow_preds = []
+        flow, feature0, _ = self._match_scales(images, resizer, training,
+                                               flow_preds)
+        flow_up = self.postprocess_predictions(
+            self._upsample_flow(flow, feature0), resizer, is_flow=True)
+        outputs = {"flows": flow_up[:, None]}
+        if training:
+            outputs["flow_preds"] = torch.stack(flow_preds + [flow_up])
+        return outputs
+
+    def _match_scales(self, images: torch.Tensor, resizer, training: bool,
+                      flow_preds: list):
+        """The coarse-to-fine matching of the preprocessed ``images``:
+        the last scale's propagated flow, its post-transformer frame-0
+        features and its backbone features of both frames (taken before
+        the warp, the position embedding and the transformer).  In
+        training, appends to ``flow_preds`` each scale's matched flow and,
+        but at the last scale, its propagated flow, upsampled bilinearly
+        to the input's size."""
         b = images.shape[0]
         features = self.backbone(torch.cat([images[:, 0], images[:, 1]],
                                            0))[::-1]
-        flow_preds = []
         flow = None
         for scale_idx in range(self.num_scales):
             feature0, feature1 = features[scale_idx][:b], \
                 features[scale_idx][b:]
+            feature_ori = (feature0, feature1)
             upsample_factor = self.upsample_factor * (
                 2 ** (self.num_scales - 1 - scale_idx))
             if flow is not None:
@@ -195,12 +214,7 @@ class GMFlow(BaseModel):
                     self._upsample_flow(flow, feature0, bilinear=True,
                                         upsample_factor=upsample_factor),
                     resizer, is_flow=True))
-        flow_up = self.postprocess_predictions(
-            self._upsample_flow(flow, feature0), resizer, is_flow=True)
-        outputs = {"flows": flow_up[:, None]}
-        if training:
-            outputs["flow_preds"] = torch.stack(flow_preds + [flow_up])
-        return outputs
+        return flow, feature0, feature_ori
 
 
 class GMFlowWithRefinement(GMFlow):

@@ -76,7 +76,8 @@ PORTED = ["ccmr", "ccmr_p", "craft", "csflow", "dicl", "dip", "dpflow",
           "fastflownet", "flow1d", "flow_anything", "flowformer",
           "flowformer_pp", "flownet2", "flownetc", "flownetcs", "flownetcss",
           "flownets", "flownetsd", "flowseek_m", "flowseek_t", "gma",
-          "gmflow", "gmflow_refine", "gmflownet", "gmflownet_mix", "hd3",
+          "gmflow", "gmflow_p", "gmflow_p_sc2", "gmflow_p_sc2_ref6",
+          "gmflow_refine", "gmflownet", "gmflownet_mix", "hd3",
           "hd3_ctxt", "irr_pwc", "irr_pwcnet", "irr_pwcnet_irr", "lcv_raft",
           "lcv_raft_small", "liteflownet", "liteflownet2",
           "liteflownet2_pseudoreg", "liteflownet3", "liteflownet3_pseudoreg",
@@ -89,17 +90,19 @@ PORTED = ["ccmr", "ccmr_p", "craft", "csflow", "dicl", "dip", "dpflow",
           "recover_mn", "recover_rn", "rpknet", "scopeflow", "scv4", "scv8",
           "sea_raft", "sea_raft_l", "sea_raft_m", "sea_raft_s",
           "separableflow", "skflow", "splatflow", "starflow", "streamflow",
-          "vcn", "vcn_small", "videoflow_bof", "videoflow_mof",
-          "waft_dav2_a1", "waft_dav2_a2", "waft_dinov3_a2", "waft_twins_a2"]
+          "unimatch", "unimatch_sc2", "unimatch_sc2_ref6", "vcn",
+          "vcn_small", "videoflow_bof", "videoflow_mof", "waft_dav2_a1",
+          "waft_dav2_a2", "waft_dinov3_a2", "waft_twins_a2"]
 
 
 def test_registry():
-    """The 84 ported names; the trainable ones are the JAX package's
-    trainable names among them (``flowformer_pp``, the VideoFlows,
-    ``memfof``, ``splatflow``, ``flow_anything``, the FlowSeeks, the
-    CCMRs, the seven LiteFlowNets and STaRFlow are not trainable)."""
+    """The 90 ported names, all of the JAX package's; the trainable ones
+    are the JAX package's trainable names among them (``flowformer_pp``,
+    the VideoFlows, ``memfof``, ``splatflow``, ``flow_anything``, the
+    FlowSeeks, the CCMRs, the seven LiteFlowNets and STaRFlow are not
+    trainable)."""
     assert ptlflow_tpu_torch.get_model_names() == PORTED
-    assert len(PORTED) == 84
+    assert len(PORTED) == 90
     assert ptlflow_tpu_torch.get_trainable_model_names() == [
         n for n in PORTED if n in ptlflow_tpu.get_trainable_model_names()]
     for name in ("flowformer_pp", "videoflow_bof", "videoflow_mof",
@@ -119,7 +122,9 @@ def test_registry():
                  "irr_pwcnet_irr", "flownets", "flownetc", "flownetsd",
                  "flownetcs", "flownetcss", "flownet2", "fastflownet",
                  "maskflownet", "maskflownet_s", "hd3", "hd3_ctxt", "dicl",
-                 "vcn", "vcn_small", "neuflow", "gmflow", "gmflow_refine"):
+                 "vcn", "vcn_small", "neuflow", "gmflow", "gmflow_refine",
+                 "unimatch", "unimatch_sc2", "unimatch_sc2_ref6", "gmflow_p",
+                 "gmflow_p_sc2", "gmflow_p_sc2_ref6"):
         assert name in ptlflow_tpu_torch.get_trainable_model_names()
     assert ptlflow_tpu_torch.get_ptlflow_trained_model_names() == [
         "ccmr", "ccmr_p", "dpflow", "flowseek_m", "flowseek_t", "gma",
@@ -132,14 +137,14 @@ def test_registry():
 
 
 def test_registry_names_and_flags_are_the_jax_packages():
-    """Every port name is a JAX registry name, trainable and
-    ptlflow-trained exactly where the JAX package says so."""
+    """The port's registry is the JAX package's: the same names, trainable
+    and ptlflow-trained exactly where the JAX package says so."""
     names = ptlflow_tpu_torch.get_model_names()
-    assert set(names) <= set(ptlflow_tpu.get_model_names())
+    assert set(names) == set(ptlflow_tpu.get_model_names())
     for fn in ("get_trainable_model_names",
                "get_ptlflow_trained_model_names"):
-        want = set(getattr(ptlflow_tpu, fn)()) & set(names)
-        assert set(getattr(ptlflow_tpu_torch, fn)()) == want, fn
+        assert (set(getattr(ptlflow_tpu_torch, fn)())
+                == set(getattr(ptlflow_tpu, fn)())), fn
 
 
 @pytest.mark.parametrize("name", ["sea_raft_m", "gma"])
@@ -277,7 +282,9 @@ def test_checkpoint_round_trip(tmp_path):
     ("vcn", "f2.conva1.conv1.conv2.0.weight"),
     ("vcn_small", "f3.proj.0.conv1.weight"),
     ("neuflow", "cross_attn_s16.norm.weight"),
-    ("gmflow_refine", "backbone.trident_conv.weight")])
+    ("gmflow_refine", "backbone.trident_conv.weight"),
+    ("unimatch", "upsampler.2.weight"), ("unimatch_sc2", "upsampler.0.bias"),
+    ("unimatch_sc2_ref6", "refine.gru.convq2.weight")])
 def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     """A Lightning-style .ckpt in the reference's layout, converted from a
     JAX tree (MemFlow nests its net under ``network.``, LCV-RAFT stores
@@ -307,7 +314,8 @@ def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     displacements, (O, I, 1, 3, 3) over the image, (O, I, 1, 1, 1)
     projections), NeuFlow's post-norm and affine-free BatchNorms,
     GMFlow's trident convolution, one (O, I, 3, 3) tensor shared by both
-    scales), loads into ``get_model`` strictly, every tensor equal.  WAFT's Twins checkpoint
+    scales), UniMatch's refinement (``refine_proj``, the update block's
+    ``mask.0``/``mask.2``) or upsampler, loads into ``get_model`` strictly, every tensor equal.  WAFT's Twins checkpoint
     also holds timm's classifier ``norm.``/``head.``, which the load
     drops."""
     import jax
@@ -358,7 +366,10 @@ def test_reference_layout_checkpoint_loads(name, extra, tmp_path):
     ("vcn_small", "dc3_convo.6.weight", {}),
     ("neuflow", "backbone.block1_dd.conv_block.norm.running_var", {}),
     ("gmflow_refine", "backbone.trident_conv.weight", {}),
-    ("gmflow", "transformer.layers.5.cross_attn_ffn.mlp.2.weight", {})])
+    ("gmflow", "transformer.layers.5.cross_attn_ffn.mlp.2.weight", {}),
+    ("unimatch", "upsampler.0.weight", {}),
+    ("unimatch_sc2", "backbone.trident_conv.weight", {}),
+    ("unimatch_sc2_ref6", "refine.mask.2.bias", {})])
 def test_reference_layout_loads_at_registered_width(name, extra, args):
     """FlowNet's six names at their registered width (39 to 163 million
     parameters), and ``flownet2`` with ``batch_norm`` (every convolution
@@ -371,8 +382,8 @@ def test_reference_layout_loads_at_registered_width(name, extra, args):
     hold the values; a checkpoint file of ``flownet2`` would be 650 MB.
     Likewise the slice of MaskFlowNet (+S), HD3 (+ctxt, and the
     ``encoder="vgg"`` and ``decoder="resnet"`` options that no registered
-    name sets), STaRFlow and DICL; and VCN (+small), NeuFlow and GMFlow
-    (+refine)."""
+    name sets), STaRFlow and DICL; VCN (+small), NeuFlow and GMFlow
+    (+refine); and UniMatch's three architectures."""
     import jax
 
     from ptlflow_tpu_torch.utils.convert import state_dict_from_jax

@@ -28,6 +28,7 @@ from ptlflow_tpu.nn.module import flatten_params
 from ptlflow_tpu_torch.models.raft import extractor as text
 from ptlflow_tpu_torch.models.raft import update as tupd
 from ptlflow_tpu_torch.utils.convert import state_dict_from_jax
+from tests.test_torch_train import random_params
 
 
 def nchw(a):
@@ -37,28 +38,6 @@ def nchw(a):
 
 def nhwc(t):
     return np.moveaxis(t.detach().float().numpy(), -3, -1)
-
-
-def np_tree(params):
-    return jax.tree_util.tree_map(np.asarray, params)
-
-
-def randomize_norms(params, rng):
-    """Give every BatchNorm of a numpy param tree non-trivial statistics
-    and affine weights."""
-    out = {}
-    for k, v in params.items():
-        if isinstance(v, dict):
-            out[k] = randomize_norms(v, rng)
-        else:
-            out[k] = v
-    if "running_mean" in out:
-        c = out["running_mean"].shape[0]
-        out["running_mean"] = (0.1 * rng.randn(c)).astype(np.float32)
-        out["running_var"] = (1 + 0.5 * rng.rand(c)).astype(np.float32)
-        out["weight"] = (1 + 0.1 * rng.randn(c)).astype(np.float32)
-        out["bias"] = (0.1 * rng.randn(c)).astype(np.float32)
-    return out
 
 
 def damp_flow_head(block_params, factor=0.1):
@@ -71,10 +50,11 @@ def damp_flow_head(block_params, factor=0.1):
 
 
 def carry(jmod, tmod, seed, damp=False):
-    """Random JAX params for ``jmod``; the same weights loaded into
-    ``tmod``.  Returns the JAX params."""
-    params = randomize_norms(np_tree(jmod.init(jax.random.PRNGKey(seed))),
-                             np.random.RandomState(seed))
+    """Seeded ``random_params`` for ``jmod`` (drawn in numpy from the JAX
+    tree's shapes: the JAX init runs op by op, 2.5-9 s a block); the same
+    weights loaded into ``tmod``.  Returns the JAX params."""
+    params = random_params(jax.eval_shape(jmod.init, jax.random.PRNGKey(0)),
+                           np.random.RandomState(seed))
     if damp:
         damp_flow_head(params)
     tmod.load_state_dict(state_dict_from_jax(params), strict=True)
@@ -214,8 +194,8 @@ def test_eval_forward_matches_jax(jax_twins, name):
     grows ~5x per iteration, and the JAX package's own grouped and
     ungrouped lookups differ by 1.4e-3 px after 3 iterations."""
     jmodel = jax_twins(name, iters=3)
-    params = randomize_norms(np_tree(jmodel.init_params(seed=3)),
-                             np.random.RandomState(3))
+    params = random_params(jax.eval_shape(jmodel.init, jax.random.PRNGKey(0)),
+                           np.random.RandomState(3))
     damp_flow_head(params["update_block"])
     jmodel.params = jax.tree_util.tree_map(jnp.asarray, params)
     tmodel = ptlflow_tpu_torch.get_model(name, args={"iters": 3},
@@ -234,11 +214,11 @@ def test_eval_forward_matches_jax(jax_twins, name):
 
 
 def _jax_and_port(jax_twins, name, seed, iters, **args):
-    """The JAX model with random weights (norms randomised, flow head
-    damped) and the port's model on the CPU with the same weights."""
+    """The JAX model with seeded ``random_params`` (flow head damped) and
+    the port's model on the CPU with the same weights."""
     jmodel = jax_twins(name, iters=iters, **args)
-    params = randomize_norms(np_tree(jmodel.init_params(seed=seed)),
-                             np.random.RandomState(seed))
+    params = random_params(jax.eval_shape(jmodel.init, jax.random.PRNGKey(0)),
+                           np.random.RandomState(seed))
     damp_flow_head(params["update_block"])
     jmodel.params = jax.tree_util.tree_map(jnp.asarray, params)
     tmodel = ptlflow_tpu_torch.get_model(name, args={"iters": iters, **args},
